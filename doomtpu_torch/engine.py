@@ -1,0 +1,115 @@
+"""DoomEngine: the port's user-facing API.
+
+    engine = DoomEngine.from_wad("doom1.wad", "e1m1", device="cuda")
+    state = engine.new_game(batch=2048, generator=torch.Generator("cuda"))
+    idx, rgb = engine.render_walls(state)            # [B, H, W]
+
+Counterpart of doomtpu/engine.py.  This package renders walls, planes
+and sky; the full frame with items, the simulation and calibration come
+with the next slices and raise NotImplementedError until then.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from doomtpu.assets.bundle import LevelAssets
+from doomtpu.config import RenderConfig
+from doomtpu.info import load_default_tables
+from doomtpu.info.tables import InfoTables
+from doomtpu.level.tables import MapTables
+from doomtpu.wad.reader import WadFile
+from doomtpu_torch.render.camsort import sort_state, unsort_out
+from doomtpu_torch.render.device import DeviceLevel
+from doomtpu_torch.render.frame import render_walls_planes
+from doomtpu_torch.sim.state import GameState
+from doomtpu_torch.sim.thinkers import ThinkerTables
+
+
+@dataclass(eq=False)
+class DoomEngine:
+    wad: WadFile
+    tables: MapTables
+    assets: LevelAssets
+    info: InfoTables
+    level: DeviceLevel
+    thinkers: ThinkerTables
+    config: RenderConfig
+    device: torch.device
+
+    @classmethod
+    def from_wad_bytes(
+        cls, data: bytes, map_name: str = "e1m1",
+        config: RenderConfig | None = None, device="cpu",
+        require_iwad: bool = False,
+    ) -> "DoomEngine":
+        device = torch.device(device)
+        wad = WadFile(data, require_iwad=require_iwad)
+        info = load_default_tables()
+        tables = MapTables.load(wad, map_name)
+        assets = LevelAssets.load(wad, tables, info.sprite_names)
+        return cls(
+            wad=wad, tables=tables, assets=assets, info=info,
+            level=DeviceLevel.build(tables, assets, info, device),
+            thinkers=ThinkerTables.build(tables, info, device),
+            config=config or RenderConfig(), device=device,
+        )
+
+    @classmethod
+    def from_wad(cls, path: str, map_name: str = "e1m1", **kw) -> "DoomEngine":
+        with open(path, "rb") as f:
+            return cls.from_wad_bytes(f.read(), map_name, **kw)
+
+    def new_game(self, batch: int = 1, pos=None, angle=None,
+                 generator: torch.Generator | None = None) -> GameState:
+        """B players at the start (or at `pos` [B, 2] / `angle` [B]) on
+        the engine's device; light countdowns drawn from `generator`."""
+        return GameState.initial(
+            self.level, self.thinkers, batch, pos=pos, angle=angle,
+            generator=generator,
+        )
+
+    def _walls(self, state: GameState):
+        """(outputs, aux) of a walls/planes render, cameras Morton-sorted
+        when the batch is larger than 8 (aux stays in sorted order)."""
+        perm = None
+        if self.config.camera_sort and state.batch > 8:
+            state, perm = sort_state(state)
+        idx, rgb, aux = render_walls_planes(
+            self.level, self.config,
+            state.pos[:, 0], state.pos[:, 1], state.angle,
+            state.floor_height, state.sector_light, state.timestamp,
+        )
+        out = (idx, rgb)
+        if perm is not None:
+            out = unsort_out(out, perm)
+        return out, aux
+
+    def render_walls(self, state: GameState):
+        """Walls/planes/sky only (no things) -> (idx [B,H,W] with -1 =
+        unwritten, rgb packed 0xRRGGBB [B,H,W])."""
+        return self._walls(state)[0]
+
+    def render_walls_counters(self, state: GameState) -> dict:
+        """Summed capacity counters of a walls/planes render:
+        {overflow, live_dropped}.  All 0 proves the mid/clip pools
+        dropped nothing."""
+        _, aux = self._walls(state)
+        return {k: int(aux[k].sum()) for k in ("overflow", "live_dropped")}
+
+    def render(self, state: GameState):
+        raise NotImplementedError("slice 2/3: items are not ported yet")
+
+    def render_counters(self, state: GameState):
+        raise NotImplementedError("slice 2/3: items are not ported yet")
+
+    def tick(self, state: GameState, controls, generator=None):
+        raise NotImplementedError("slice 2/3: the simulation is not ported yet")
+
+    def rollout(self, state: GameState, controls_seq, generator=None):
+        raise NotImplementedError("slice 2/3: the simulation is not ported yet")
+
+    def calibrate(self, states):
+        raise NotImplementedError("slice 2/3: calibration is not ported yet")

@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface.  At first use it is
+compiled by nvcc into `build/doomtpu_torch/` at the root of the checkout
+(a directory .gitignore lists) and loaded with ctypes; the library's
+file name carries a hash of the source and flags, so an edited source is
+rebuilt.  There is no fallback: a missing nvcc, a card other than
+Hopper or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "doomtpu_torch"
+
+# -fmad=false: no multiply is contracted into an FMA (a contracted
+# product flips `as i16` truncations at span boundaries); IEEE divide
+# and sqrt stay on (no --use_fast_math).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_C = ctypes
+_P = _C.c_void_p
+_I = _C.c_int
+_F = _C.c_float
+# argtypes of every exported function, by library
+_SIGNATURES = {
+    "paint": {
+        "doom_paint": (
+            [_P, _P, _P, _P, _I, _I,            # rows, scnt, camf, cami, B, G
+             _P, _I, _I, _P, _P, _P,            # tex, TH, TW, flats, sky, pal
+             _I, _I, _I, _I, _I, _I,            # W, H, KM, KC, pow2, twq
+             _F, _F, _F, _F, _F, _F, _F, _F]    # half_w half_h inv_aspect wx_c
+            #                                     eye inv_w inv_h inv_255
+            + [_P] * 10                         # idx ld rgb pidx pld mpool
+            #                                     cpool cnt_mid cnt_clip ovf
+            + [_P],                             # stream
+            _I,
+        ),
+        "doom_cuda_error_string": ([_I], _C.c_char_p),
+    },
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_seconds: dict[str, float] = {}
+build_log: dict[str, str] = {}
+
+
+def nvcc_path() -> str | None:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+def _check_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA kernels need a CUDA device; none is visible")
+    cap = torch.cuda.get_device_capability()
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a (Hopper); this card is "
+            f"sm_{cap[0]}{cap[1]}"
+        )
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built from csrc/<name>.cu on
+    first use."""
+    if name in _loaded:
+        return _loaded[name]
+    _check_device()
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    if not lib_path.exists():
+        nvcc = nvcc_path()
+        if nvcc is None:
+            raise RuntimeError("nvcc not found (CUDA_HOME, PATH, "
+                               "/usr/local/cuda/bin)")
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True,
+        )
+        build_seconds[name] = time.perf_counter() - t0
+        build_log[name] = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{build_log[name]}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    _loaded[name] = lib
+    return lib

@@ -1,0 +1,607 @@
+"""The paint stage: walls, visplanes and sky drawn at emit time.
+
+Counterpart of doomtpu/ops/pallas_paint.py.  `render_paint` builds the
+kernel's inputs from a camera-stage frame (the host side of the JAX
+`render_paint`); `paint` launches the hand-written CUDA kernel
+(csrc/paint.cu) on CUDA tensors and runs `paint_reference`, its plain
+PyTorch version, on CPU tensors.  Both give the same bits.
+
+What is computed, per camera and screen column, walking the camera's
+active segs front to back with the occlusion state (hor / fo / co):
+
+- wall columns: 1/z-perspective texture u, linear v, texture wrap;
+- floor and ceiling spans: per-pixel inverse projection into a 64x64
+  flat; sky spans: the angle-scrolled sky texture;
+- masked-mid records (mid pool, KM slots) and sprite-clip records
+  (clip pool, KC slots) per column, with overflow counts;
+- the composite (planes over walls) and the shade (palette + light
+  diminish, bitmap_render.rs:190-208).
+
+Draw order: walls paint front to back into the wall buffer (a later
+emission wins at the 1-px span-boundary overlaps, the reference's paint
+order); planes and sky paint in emission order into the plane buffer;
+the composite takes plane over wall (visplanes draw after all walls,
+renderer/mod.rs:118-136).
+
+flags bits: 0-3 piece active, 4 two_sided, 5 draw_ceiling, 6-9 draws,
+10 floor-flat-is-sky, 11 ceiling-flat-is-sky, 12 seg has a middle
+texture.
+
+Seg rows (`rows`, [B, G, NR] i32, f32 fields as their bits): row k of
+camera b is that camera's k-th ACTIVE seg in traversal order; rows at
+k >= scnt[b] are inactive segs and never read by the kernel.  One
+contiguous row per seg suits the kernel: every thread of a camera's
+block reads the same row, which is one or two cache lines.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from doomtpu.config import (
+    ASPECT_RATIO_CORRECTION,
+    FLAT_SIZE,
+    PLAYER_EYE_HEIGHT,
+    SKY_TEXTURE_HEIGHT,
+    SKY_TEXTURE_WIDTH,
+    RenderConfig,
+)
+from doomtpu_torch.render.device import DeviceLevel
+from doomtpu_torch.render.jmath import (
+    F32, I32, as_i16, cos_sin, div_const, div_trunc, f32, fdiv, reciprocal,
+    rem_trunc, smul, wrap_tex,
+)
+
+LD_WRITTEN = 1 << 24
+LD_SKY = 1 << 25
+FLAG_HAS_MID = 1 << 12
+
+# span-record packing (doomtpu/render/walls.py)
+KIND_WALL = 0
+KIND_MID = 3
+SPAN_E2T = 1 << 26
+SPAN_E2B = 1 << 27
+SPAN_DC = 1 << 28
+SPAN_NODRAW = -(2 ** 31)
+
+# seg row layout (i32 words; "f" = f32 bits).  Mirrored in csrc/paint.cu.
+R_G = 0          # seg id
+R_X0 = 1         # screen x range (through f32, as the JAX field matrix)
+R_X1 = 2
+R_FLAGS = 3
+R_LSX = 4        # f: FOV-clipped view-space endpoints (non-finite -> 0)
+R_LSY = 5
+R_LEX = 6
+R_LEY = 7
+R_LENGTH = 8     # f
+R_SOFF = 9       # f: start offset
+R_OFFX = 10      # texture x offset total
+R_LIGHT = 11
+R_FLAT = 12      # floor, ceiling flat ids (12, 13)
+R_PLANEH = 14    # floor, ceiling heights (14, 15)
+R_PIECE0 = 16    # 10 words per piece:
+P_YBS = 0        # f: bottom edge y at x0
+P_YBD = 1        # f: bottom edge slope
+P_YTS = 2        # f: top edge y at x0
+P_YTD = 3        # f: top edge slope
+P_TH = 4         # texture height
+P_TW = 5         # texture width
+P_OFFY = 6       # texture y offset total
+P_TEX = 7        # texture id (>= 0)
+P_UY1 = 8        # f: top - bottom height (non-finite -> 0), mid records
+P_UY1RAW = 9     # f: the same, as computed (wall texel v)
+P_WORDS = 10
+NR = R_PIECE0 + 4 * P_WORDS      # 56
+
+MID_PLANES = 7    # span, d1 (texel column), d2 (by|ty), d3 (offy|th),
+#                   d4 (light|zdist), d5 (uy1 bits), d6 (seg id)
+CLIP_PLANES = 7   # span, d2 (by|ty), d6 (seg id), lsx, lsy, lex, ley
+
+
+def _pack16(hi, lo):
+    return ((hi & 0xFFFF) << 16) | (lo & 0xFFFF)
+
+
+def _pack_span(kind, y0, y1):
+    y0c = torch.clamp(y0, -1, 254) + 1
+    y1c = torch.clamp(y1, -1, 254) + 1
+    return (kind << 29) | (y0c << 8) | y1c
+
+
+def _texel_columns(level: DeviceLevel) -> int:
+    """Texel columns a wall piece may sample: 256 on a level with wall
+    textures wider than 128, else 128 (the JAX kernel's clamp)."""
+    return min(256 if level.texq_wide else 128, level.tex_pixels.shape[2])
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.to(F32).contiguous().view(I32)
+
+
+def _consts(cfg: RenderConfig) -> dict:
+    """f32 constants of the plane projection, sky lookup and shade,
+    rounded exactly where the JAX kernel rounds them.  Its divisions by
+    constants are multiplies by f32 reciprocals (see jmath.div_const)."""
+    W, H = cfg.width, cfg.height
+    return {
+        "half_w": float(np.float32(W / 2.0)),
+        "half_h": float(np.float32(H / 2.0)),
+        "inv_aspect": reciprocal(ASPECT_RATIO_CORRECTION),
+        "wx_c": float(np.float32(W / 2.0 / ASPECT_RATIO_CORRECTION)),
+        "eye": float(np.float32(PLAYER_EYE_HEIGHT)),
+        "inv_w": reciprocal(W),
+        "inv_h": reciprocal(H),
+        "inv_255": reciprocal(255.0),
+    }
+
+
+# ---------------------------------------------------------------------------
+# input build (the host side of the JAX render_paint)
+# ---------------------------------------------------------------------------
+
+def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
+                 angle, px, py, floor_height):
+    """(rows [B, G, NR] i32, scnt [B] i32, camf [B, 3] f32, cami [B, 3]
+    i32) for `paint`, from a camera-stage frame and the traversal
+    order."""
+    B, G = order.shape
+    active, draws, tex = frame["active"], frame["draws"], frame["tex"]
+    ffl, cfl = frame["floor_flat"], frame["ceil_flat"]
+    bit = lambda x, s: x.to(I32) << s
+    flags = (
+        bit(active[..., 0], 0) | bit(active[..., 1], 1)
+        | bit(active[..., 2], 2) | bit(active[..., 3], 3)
+        | bit(frame["two_sided"], 4) | bit(frame["draw_ceiling"], 5)
+        | bit(draws[..., 0], 6) | bit(draws[..., 1], 7)
+        | bit(draws[..., 2], 8) | bit(draws[..., 3], 9)
+        | bit(level.flat_is_sky[ffl.long()], 10)
+        | bit(level.flat_is_sky[cfl.long()], 11)
+        | bit(tex[..., 1] >= 0, 12)
+    )
+    tex_safe = torch.clamp(tex, min=0)
+    ts = tex_safe.long()
+
+    def fin(x):
+        return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+    # ints the JAX field matrix carries as f32 go through f32 here too
+    via_f32 = lambda x: x.to(F32).to(I32)
+    seg_ids = torch.arange(G, dtype=I32, device=order.device)
+    base = [
+        seg_ids[None].expand(B, G),
+        via_f32(frame["x0"]), via_f32(frame["x1"]), flags,
+        _bits(fin(frame["lsx"])), _bits(fin(frame["lsy"])),
+        _bits(fin(frame["lex"])), _bits(fin(frame["ley"])),
+        _bits(fin(frame["length"])), _bits(fin(frame["start_offset"])),
+        via_f32(frame["offset_x_total"]), frame["light"].to(I32),
+        ffl, cfl, frame["floor_h_i"], frame["ceil_h_i"],
+    ]
+    uy1 = frame["uy1"]
+    piece = torch.stack(
+        [
+            _bits(f32(frame["yb_s"])), _bits(fin(frame["yb_d"])),
+            _bits(f32(frame["yt_s"])), _bits(fin(frame["yt_d"])),
+            level.tex_h[ts], level.tex_w[ts], frame["off_y"], tex_safe,
+            _bits(fin(uy1)), _bits(uy1),
+        ],
+        dim=-1,
+    ).reshape(B, G, 4 * P_WORDS)
+    rows_seg = torch.cat(
+        [torch.stack([x.to(I32) for x in base], -1), piece.to(I32)], -1
+    )                                                      # [B, G, NR]
+
+    # per-camera active segs first, each group in traversal order: an
+    # inactive seg changes nothing, so the kernel stops at scnt
+    act_o = torch.gather((flags & 15) != 0, 1, order.long())
+    first = torch.argsort((~act_o).to(torch.int8), dim=1, stable=True)
+    comb = torch.gather(order.long(), 1, first)
+    scnt = act_o.sum(1, dtype=I32)
+    rows = torch.gather(
+        rows_seg, 1, comb[..., None].expand(B, G, NR)
+    ).contiguous()
+
+    stw = SKY_TEXTURE_WIDTH
+    ang = f32(angle)
+    c, s = cos_sin(ang)
+    camf = torch.stack([c, s, f32(floor_height)], -1).contiguous()
+    tx_off = as_i16(div_const(ang * -float(stw), math.pi / 2.0))
+    tx_off = tx_off + stw
+    tx_off = torch.where(
+        tx_off < 0, tx_off + stw * (1 - div_trunc(tx_off, stw)), tx_off
+    )
+    cami = torch.stack(
+        [as_i16(f32(px)), as_i16(f32(py)), tx_off], -1
+    ).to(I32).contiguous()
+    return rows, scnt, camf, cami
+
+
+def render_paint(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
+                 angle, px, py, floor_height) -> dict:
+    """Run the paint stage over B cameras.
+
+    Returns idx/ld/rgb [B, H, W], the mid pool (7 x [B, W, KM]), cnt_mid,
+    the clip pool (7 x [B, W, KC]), cnt_clip, overflow [B, 2] (mid,
+    clip), and live_dropped / live_stale (0: every active seg is
+    visited).  ld packs light(8)<<16 | dist(u16) | written<<24 | sky<<25.
+    """
+    if not level.paint_ok:
+        raise ValueError("level not eligible for the paint kernel "
+                         "(wall-piece textures > 256x128 or transparent)")
+    if cfg.paint_live_capacity > 0:
+        raise NotImplementedError(
+            "paint_live_capacity > 0: the farthest-first live-seg drop "
+            "is not ported; every active seg is always visited"
+        )
+    rows, scnt, camf, cami = build_inputs(
+        level, cfg, frame, order, angle, px, py, floor_height
+    )
+    out = paint(level, cfg, rows, scnt, camf, cami)
+    zero = torch.zeros((), dtype=I32, device=rows.device)
+    out["live_dropped"] = zero
+    out["live_stale"] = zero
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _check_inputs(level, cfg, rows, scnt, camf, cami):
+    B = rows.shape[0]
+    want = {
+        "rows": (rows, I32, (B, level.num_segs, NR)),
+        "scnt": (scnt, I32, (B,)),
+        "camf": (camf, F32, (B, 3)),
+        "cami": (cami, I32, (B, 3)),
+    }
+    for name, (t, dt, shape) in want.items():
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"paint: {name} must be {dt} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != rows.device:
+            raise ValueError(f"paint: {name} is on {t.device}, rows on "
+                             f"{rows.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paint: {name} must be contiguous")
+    # the tables the kernel reads through raw pointers, with the shapes
+    # it assumes (None: any size)
+    for name, shape in (
+        ("tex_pixels", (None, None, None)),
+        ("flat_pixels", (None, FLAT_SIZE, FLAT_SIZE)),
+        ("sky_pixels", (SKY_TEXTURE_HEIGHT, SKY_TEXTURE_WIDTH)),
+        ("palette_packed", (256,)),
+    ):
+        t = getattr(level, name)
+        if t.device != rows.device:
+            raise ValueError(f"paint: level on {t.device}, inputs on "
+                             f"{rows.device}")
+        if t.dtype != I32 or not t.is_contiguous():
+            raise ValueError(f"paint: level.{name} must be contiguous int32")
+        if t.dim() != len(shape) or any(
+            s not in (None, n) for s, n in zip(shape, t.shape)
+        ):
+            raise ValueError(f"paint: level.{name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    if cfg.width < 1 or cfg.height < 1:
+        raise ValueError("paint: empty screen")
+
+
+def _alloc_outputs(B, W, H, KM, KC, device):
+    e = lambda *s: torch.empty(s, dtype=I32, device=device)
+    return {
+        "idx": e(B, H, W), "ld": e(B, H, W), "rgb": e(B, H, W),
+        "mpool": e(MID_PLANES, B, KM, W), "cpool": e(CLIP_PLANES, B, KC, W),
+        "cnt_mid": e(B, W), "cnt_clip": e(B, W), "overflow": e(B, 2),
+    }
+
+
+def _result(o: dict) -> dict:
+    """Kernel-layout outputs -> the JAX render_paint layout (pools as
+    [B, W, K] views)."""
+    return {
+        "idx": o["idx"], "ld": o["ld"], "rgb": o["rgb"],
+        "midpool": tuple(p.transpose(1, 2) for p in o["mpool"]),
+        "cnt_mid": o["cnt_mid"],
+        "clippool": tuple(p.transpose(1, 2) for p in o["cpool"]),
+        "cnt_clip": o["cnt_clip"], "overflow": o["overflow"],
+    }
+
+
+def paint(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
+          cami) -> dict:
+    """Paint B cameras.  CUDA tensors launch the kernel (csrc/paint.cu);
+    CPU tensors run `paint_reference`.  Anything else raises."""
+    _check_inputs(level, cfg, rows, scnt, camf, cami)
+    if rows.device.type == "cpu":
+        return paint_reference(level, cfg, rows, scnt, camf, cami)
+    if rows.device.type != "cuda":
+        raise ValueError(f"paint: no kernel for device {rows.device}")
+    from doomtpu_torch.ops.build import load_library
+
+    B, G = rows.shape[:2]
+    W, H, KM, KC = cfg.width, cfg.height, cfg.mid_capacity, cfg.clip_capacity
+    if W > 1024:
+        raise ValueError(f"paint: width {W} > 1024 (one thread per column "
+                         "in one block)")
+    lib = load_library("paint")
+    o = _alloc_outputs(B, W, H, KM, KC, rows.device)
+    pidx = torch.empty((B, H, W), dtype=I32, device=rows.device)
+    pld = torch.empty_like(pidx)
+    TH, TW = level.tex_pixels.shape[1:]
+    twq = _texel_columns(level)
+    k = _consts(cfg)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    err = lib.doom_paint(
+        p(rows), p(scnt), p(camf), p(cami), B, G,
+        p(level.tex_pixels), TH, TW, p(level.flat_pixels),
+        p(level.sky_pixels), p(level.palette_packed),
+        W, H, KM, KC, int(level.tex_sizes_pow2), twq,
+        k["half_w"], k["half_h"], k["inv_aspect"], k["wx_c"], k["eye"],
+        k["inv_w"], k["inv_h"], k["inv_255"],
+        p(o["idx"]), p(o["ld"]), p(o["rgb"]), p(pidx), p(pld),
+        p(o["mpool"]), p(o["cpool"]), p(o["cnt_mid"]), p(o["cnt_clip"]),
+        p(o["overflow"]), ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"paint kernel launch failed: CUDA error {err} "
+                           f"({lib.doom_cuda_error_string(err).decode()})")
+    paint.launches += 1
+    return _result(o)
+
+
+paint.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def paint_reference(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
+                    cami) -> dict:
+    """Plain PyTorch paint: a Python loop over the ordered seg slots with
+    [B, W] state tensors, painting [B, H, W] buffers under masks.  Same
+    arguments and outputs as `paint`; every op is an IEEE f32 op with
+    the kernel's rounding, so the two agree bit for bit."""
+    _check_inputs(level, cfg, rows, scnt, camf, cami)
+    dev = rows.device
+    B = rows.shape[0]
+    W, H, KM, KC = cfg.width, cfg.height, cfg.mid_capacity, cfg.clip_capacity
+    TH, TW = level.tex_pixels.shape[1:]
+    twq = _texel_columns(level)
+    pow2 = level.tex_sizes_pow2
+    k = _consts(cfg)
+    zi = lambda *s: torch.zeros(s, dtype=I32, device=dev)
+
+    xx = torch.arange(W, dtype=I32, device=dev)[None]         # [1, W]
+    yy = torch.arange(H, dtype=I32, device=dev)[None, :, None]  # [1, H, 1]
+    hor = torch.zeros((B, W), dtype=torch.bool, device=dev)
+    fo = torch.full((B, W), H, dtype=I32, device=dev)
+    co = torch.full((B, W), -1, dtype=I32, device=dev)
+    widx, wld, pidx, pld = zi(B, H, W), zi(B, H, W), zi(B, H, W), zi(B, H, W)
+    mpool, cpool = zi(MID_PLANES, B, KM, W), zi(CLIP_PLANES, B, KC, W)
+    cnt_m, cnt_c, ovf = zi(B, W), zi(B, W), zi(B, 2)
+    km_iota = torch.arange(KM, dtype=I32, device=dev)[None, :, None]
+    kc_iota = torch.arange(KC, dtype=I32, device=dev)[None, :, None]
+
+    cosv, sinv, fh = camf[:, 0:1], camf[:, 1:2], camf[:, 2:3]   # [B, 1]
+    pxi, pyi, txoff = cami[:, 0:1], cami[:, 1:2], cami[:, 2:3]
+    # sky column per screen column (row-invariant)
+    stx = rem_trunc(
+        as_i16((f32(xx) * float(SKY_TEXTURE_WIDTH)) * k["inv_w"]) + txoff,
+        SKY_TEXTURE_WIDTH,
+    )                                                            # [B, W]
+    vx = (k["half_w"] - f32(xx)) * k["inv_aspect"]               # [1, W]
+
+    def emit(pool, cnt, ovf_col, iota, K, mask, planes):
+        if not bool(mask.any()):
+            return cnt
+        fits = cnt < K
+        do = mask & fits
+        write = do[:, None, :] & (iota == cnt[:, None, :])
+        for i, d in enumerate(planes):
+            pool[i] = torch.where(write, d[:, None, :], pool[i])
+        ovf[:, ovf_col] += (mask & ~fits).sum(-1, dtype=I32)
+        return cnt + do.to(I32)
+
+    def paint_wall(m, ct, cb, by, ty, tx, zdist, th, uy1, offy, texid,
+                   light):
+        if not bool(m.any()):
+            return
+        ylo, yhi = int(ct[m].min()), int(cb[m].max())
+        ys = yy[:, ylo:yhi + 1]
+        cover = m[:, None] & (ys >= ct[:, None]) & (ys <= cb[:, None])
+        ay = fdiv(f32(ys - ty[:, None]), f32(by - ty)[:, None])
+        thb = torch.clamp(th, min=1)[:, None]                   # [B, 1, 1]
+        tyv = as_i16(f32(thb) + smul(ay, uy1[:, None])) + offy[:, None]
+        tyv = wrap_tex(tyv, thb, pow2)
+        texel = level.tex_pixels[
+            texid[:, None].long(),
+            torch.clamp(tyv, 0, TH - 1).long(),
+            torch.clamp(tx, 0, twq - 1)[:, None].long(),
+        ] & 0xFF
+        ldw = (((light << 16) | LD_WRITTEN) | (zdist & 0xFFFF))[:, None]
+        sl = slice(ylo, yhi + 1)
+        widx[:, sl] = torch.where(cover, texel, widx[:, sl])
+        wld[:, sl] = torch.where(cover, ldw.expand_as(cover), wld[:, sl])
+
+    def paint_plane(m, y0, y1, fl, is_sky, h_s, light):
+        if not bool(m.any()):
+            return
+        ylo, yhi = int(y0[m].min()), int(y1[m].max())
+        if ylo > yhi:
+            return
+        ys = yy[:, ylo:yhi + 1]
+        cover = m[:, None] & (ys >= y0[:, None]) & (ys <= y1[:, None])
+        wz = (f32(h_s) - fh - k["eye"])[:, None]                 # [B, 1, 1]
+        vy = k["half_h"] - f32(ys)                               # [1, Y, 1]
+        wx = fdiv(wz * k["wx_c"], vy)                            # [B, Y, 1]
+        wy = fdiv(wz * vx[:, None], vy)                          # [B, Y, W]
+        rx = smul(wx, cosv[:, None]) - smul(wy, sinv[:, None])
+        ry = smul(wy, cosv[:, None]) + smul(wx, sinv[:, None])
+        ftx = (as_i16(rx) + pxi[:, None]) & (FLAT_SIZE - 1)
+        fty = (as_i16(ry) + pyi[:, None]) & (FLAT_SIZE - 1)
+        flat_texel = level.flat_pixels[
+            fl[:, None].long(), fty.long(), ftx.long()
+        ] & 0xFF
+        pdist = as_i16(wx) & 0xFFFF
+        sth = SKY_TEXTURE_HEIGHT
+        sty = as_i16((f32(ys) * float(sth) * 2.0) * k["inv_h"])
+        sty = rem_trunc(torch.where(sty < 0, sty + sth, sty), sth)
+        sky_texel = level.sky_pixels[
+            sty.long(), stx[:, None].long()
+        ] & 0xFF
+        is_sky = is_sky[:, None]
+        texel = torch.where(is_sky, sky_texel, flat_texel)
+        ldw = ((light << 16) | LD_WRITTEN)[:, None] | (
+            is_sky.to(I32) * LD_SKY
+        ) | pdist
+        sl = slice(ylo, yhi + 1)
+        pidx[:, sl] = torch.where(cover, texel, pidx[:, sl])
+        pld[:, sl] = torch.where(cover, ldw, pld[:, sl])
+
+    def clamp_span(y0, y1):
+        return (torch.clamp(torch.clamp(y0, -1, 254), min=0),
+                torch.clamp(torch.clamp(y1, -1, 254), max=H - 1))
+
+    n_slots = int(scnt.max()) if B else 0
+    for slot in range(n_slots):
+        r = rows[:, slot]                                        # [B, NR]
+        iv = lambda f: r[:, f:f + 1]
+        fv = lambda f: r[:, f:f + 1].view(F32)
+        flags = torch.where((slot < scnt)[:, None], iv(R_FLAGS), 0)
+        x0, x1 = iv(R_X0), iv(R_X1)
+        x0i, x1i = as_i16(x0), as_i16(x1)
+        inrange = (xx >= x0i) & (xx <= x1i)
+        if not bool((inrange & ((flags & 15) != 0) & ~hor).any()):
+            continue    # every piece is a no-op on every open column
+        two_sided = (flags & 16) != 0
+        draw_c = (flags & 32) != 0
+        f_sky = (flags & 1024) != 0
+        c_sky = (flags & 2048) != 0
+        has_mid = (flags & FLAG_HAS_MID) != 0
+        light = iv(R_LIGHT)
+        g = iv(R_G).expand(B, W)
+        one = 1.0
+        dx = f32(xx - x0)                      # i32 wraps, as in JAX
+        ax = fdiv(dx, f32(x1 - x0))
+        uz0, uz1 = fv(R_LSX), fv(R_LEX)
+        inv0, inv1 = fdiv(one, uz0), fdiv(one, uz1)
+        denom = smul(one - ax, inv0) + smul(ax, inv1)
+        u = fdiv(
+            smul(one - ax, fdiv(0.0, uz0))
+            + smul(ax, fdiv(fv(R_LENGTH), uz1)),
+            denom,
+        )
+        tx_base = as_i16(u) + as_i16(fv(R_SOFF)) + iv(R_OFFX)
+        zdist = as_i16(fdiv((one - ax) + ax, denom))
+        coords = [iv(f).expand(B, W) for f in (R_LSX, R_LSY, R_LEX, R_LEY)]
+
+        for p in range(4):
+            act = (flags & (1 << p)) != 0
+            covered = inrange & act
+            if not bool((covered & ~hor).any()) and p != 0:
+                continue    # pieces 1-3 change nothing on closed columns
+            pb = R_PIECE0 + P_WORDS * p
+            draws_p = (flags & (64 << p)) != 0
+            open_ = covered & ~hor
+            by = as_i16(fv(pb + P_YBS) + smul(dx, fv(pb + P_YBD)))
+            ty = as_i16(fv(pb + P_YTS) + smul(dx, fv(pb + P_YTD)))
+            cb = torch.clamp(torch.minimum(fo, by), max=H - 1)
+            ct = torch.clamp(torch.maximum(co, ty), min=0)
+            in_ver = (cb >= ct) & open_
+            th, tw = iv(pb + P_TH), iv(pb + P_TW)
+            tx = wrap_tex(tx_base, torch.clamp(tw, min=1), pow2)
+            cd2 = _pack16(by, ty)
+            texid, offy = iv(pb + P_TEX), iv(pb + P_OFFY)
+
+            if p == 0:
+                solid = ~two_sided
+                gap = open_ & ~in_ver & (fo > co)
+                keep_g = (torch.clamp(fo, max=H - 1)
+                          - torch.clamp(co, min=0)) > 1
+                gap_b = gap & (by <= co)
+                gap_t = gap & draw_c & (ty >= fo)
+                rec = _pack_span(KIND_WALL, ct, cb) | SPAN_E2B | SPAN_E2T
+                rec = torch.where(draws_p, rec, rec | SPAN_NODRAW)
+                m_e = in_ver & solid
+                m_w = m_e & draws_p
+                fl_keep = f_sky | (torch.clamp(fo, max=H - 1) - cb > 1)
+                fl_emit = in_ver & (cb < fo) & (cb != H - 1) & fl_keep
+                m_f = fl_emit | (gap_b & (f_sky | keep_g))
+                y0f, y1f = clamp_span(torch.where(fl_emit, cb, co), fo)
+                ce_keep = c_sky | (
+                    torch.clamp(ct, max=H - 1) - torch.clamp(co, min=0) > 1
+                )
+                ce_emit = in_ver & draw_c & (ct > co) & ce_keep
+                m_c = ce_emit | (gap_t & (c_sky | keep_g))
+                y0c, y1c = clamp_span(co, torch.where(ce_emit, ct, fo))
+                cnt_c = emit(cpool, cnt_c, 1, kc_iota, KC, m_e,
+                             [rec, cd2, g] + coords)
+                paint_wall(m_w, ct, cb, by, ty, tx, zdist, th,
+                           fv(pb + P_UY1RAW), offy, texid, light)
+                paint_plane(m_f, y0f, y1f, iv(R_FLAT), f_sky,
+                            iv(R_PLANEH), light)
+                paint_plane(m_c, y0c, y1c, iv(R_FLAT + 1), c_sky,
+                            iv(R_PLANEH + 1), light)
+                gap_occl = gap_b | gap_t
+                occl_m = in_ver & two_sided
+                fo = torch.where(occl_m, cb, fo)
+                co = torch.where(occl_m & draw_c, ct, co)
+                solid_occl = (covered & solid) | gap_occl
+                hor = hor | solid_occl
+                fo = torch.where(solid_occl, H // 2, fo)
+                co = torch.where(solid_occl, H // 2, co)
+            elif p == 1:
+                rec = _pack_span(KIND_MID, ct, cb) | (draw_c.to(I32) * SPAN_DC)
+                cnt_c = emit(cpool, cnt_c, 1, kc_iota, KC, in_ver,
+                             [rec, cd2, g] + coords)
+                md1 = texid * level.tex_pixels.shape[2] + tx
+                md3 = _pack16(offy, th).expand(B, W)
+                md4 = _pack16(light, zdist)
+                md5 = iv(pb + P_UY1).expand(B, W)
+                cnt_m = emit(mpool, cnt_m, 0, km_iota, KM, in_ver & has_mid,
+                             [rec, md1, cd2, md3, md4, md5, g])
+            else:
+                e2 = SPAN_E2B if p == 2 else SPAN_E2T
+                rec = _pack_span(KIND_WALL, ct, cb) | e2
+                rec = torch.where(draws_p, rec, rec | SPAN_NODRAW)
+                cnt_c = emit(cpool, cnt_c, 1, kc_iota, KC, in_ver,
+                             [rec, cd2, g] + coords)
+                paint_wall(in_ver & draws_p, ct, cb, by, ty, tx, zdist, th,
+                           fv(pb + P_UY1RAW), offy, texid, light)
+                if p == 2:
+                    fo = torch.where(in_ver, ct, fo)
+                else:
+                    co = torch.where(in_ver, cb, co)
+
+    # composite (plane over wall) + shade
+    use_p = (pld & LD_WRITTEN) != 0
+    ldw = torch.where(use_p, pld, wld)
+    texel = torch.where(use_p, pidx, widx)
+    written = (ldw & LD_WRITTEN) != 0
+    is_sky = (ldw & LD_SKY) != 0
+    light = (ldw >> 16) & 0xFF
+    dist = ((ldw & 0xFFFF) << 16) >> 16
+    rgbw = level.palette_packed[(texel & 0xFF).long()]
+    factor = f32(light) * k["inv_255"] - smul(f32(dist), 1.0 / 4096.0)
+    factor = torch.maximum(factor, torch.zeros((), dtype=F32, device=dev))
+    factor = torch.where(is_sky, torch.ones((), dtype=F32, device=dev),
+                         factor)
+    packed = torch.zeros_like(texel)
+    for shift in (16, 8, 0):
+        chan = f32((rgbw >> shift) & 0xFF)
+        byte = torch.clamp(torch.trunc(chan * factor), 0.0, 255.0).to(I32)
+        packed = packed | (byte << shift)
+    o = {
+        "idx": torch.where(written, texel, -1).to(I32),
+        "ld": ldw,
+        "rgb": torch.where(written, packed, 0).to(I32),
+        "mpool": mpool, "cpool": cpool,
+        "cnt_mid": cnt_m, "cnt_clip": cnt_c, "overflow": ovf,
+    }
+    return _result(o)

@@ -1,0 +1,52 @@
+"""Frame orchestration: camera stage -> traversal order -> paint.
+
+Counterpart of doomtpu/render/frame.py for the walls/planes/sky path.
+"""
+
+from __future__ import annotations
+
+from doomtpu.config import RenderConfig
+from doomtpu_torch.ops.paint import LD_SKY, render_paint
+from doomtpu_torch.render import camera as cam
+from doomtpu_torch.render.device import DeviceLevel
+
+
+def paint_available(level: DeviceLevel, cfg: RenderConfig) -> bool:
+    """The paint path takes every level whose wall-piece textures fit
+    256x128 and are opaque, with an opaque sky, at any batch or height,
+    up to 1024 columns (one thread per column in one block)."""
+    return level.paint_ok and cfg.width <= 1024
+
+
+def render_walls_planes(
+    level: DeviceLevel,
+    cfg: RenderConfig,
+    px, py, angle, floor_height,           # [B] player state
+    sector_light,                          # [B, SEC]
+    timestamp,                             # [B]
+):
+    """Solid walls + visplanes/sky -> (idx, rgb, aux).  aux carries the
+    camera-stage frame and order, the paint pools and counters, and the
+    per-pixel light, dist and is_sky decoded from ld."""
+    if not paint_available(level, cfg):
+        raise NotImplementedError(
+            "this level or screen is not eligible for the paint kernel; "
+            "the scan + resolve fallback is not ported yet"
+        )
+    frame = cam.build_seg_frame(
+        level, cfg, px, py, angle, floor_height, sector_light, timestamp
+    )
+    order = cam.seg_order(level, cam.traversal_rank(level, px, py))
+    out = render_paint(level, cfg, frame, order, angle, px, py, floor_height)
+    ld = out["ld"]
+    aux = {
+        "frame": frame, "order": order,
+        "midpool": out["midpool"], "cnt_mid": out["cnt_mid"],
+        "clippool": out["clippool"], "cnt_clip": out["cnt_clip"],
+        "overflow": out["overflow"], "live_dropped": out["live_dropped"],
+        "live_stale": out["live_stale"],
+        "light": (ld >> 16) & 0xFF,
+        "dist": ((ld & 0xFFFF) << 16) >> 16,
+        "is_sky": (ld & LD_SKY) != 0,
+    }
+    return out["idx"], out["rgb"], aux
