@@ -1,12 +1,14 @@
 """DoomEngine: the port's user-facing API.
 
-    engine = DoomEngine.from_wad("doom1.wad", "e1m1", device="cuda")
+    engine = DoomEngine.from_wad("doom1.wad", "e1m1")   # on the card
     state = engine.new_game(batch=2048, generator=torch.Generator("cuda"))
-    idx, rgb = engine.render_walls(state)            # [B, H, W]
+    idx, rgb = engine.render(state)                  # [B, H, W]
 
-Counterpart of doomtpu/engine.py.  This package renders walls, planes
-and sky; the full frame with items, the simulation and calibration come
-with the next slices and raise NotImplementedError until then.
+Counterpart of doomtpu/engine.py.  The engine runs on the CUDA card
+unless the caller passes device="cpu" (where the kernels' plain PyTorch
+versions run).  This package renders full frames (walls, planes, sky,
+sprites, masked mids); the simulation and calibration come with later
+slices and raise NotImplementedError until then.
 """
 
 from __future__ import annotations
@@ -15,15 +17,15 @@ from dataclasses import dataclass
 
 import torch
 
-from doomtpu.assets.bundle import LevelAssets
-from doomtpu.config import RenderConfig
-from doomtpu.info import load_default_tables
-from doomtpu.info.tables import InfoTables
-from doomtpu.level.tables import MapTables
-from doomtpu.wad.reader import WadFile
+from doomtpu_torch.assets.bundle import LevelAssets
+from doomtpu_torch.config import RenderConfig
+from doomtpu_torch.info import load_default_tables
+from doomtpu_torch.info.tables import InfoTables
+from doomtpu_torch.level.tables import MapTables
+from doomtpu_torch.wad.reader import WadFile
 from doomtpu_torch.render.camsort import sort_state, unsort_out
 from doomtpu_torch.render.device import DeviceLevel
-from doomtpu_torch.render.frame import render_walls_planes
+from doomtpu_torch.render.frame import render_frame, render_walls_planes
 from doomtpu_torch.sim.state import GameState
 from doomtpu_torch.sim.thinkers import ThinkerTables
 
@@ -42,7 +44,7 @@ class DoomEngine:
     @classmethod
     def from_wad_bytes(
         cls, data: bytes, map_name: str = "e1m1",
-        config: RenderConfig | None = None, device="cpu",
+        config: RenderConfig | None = None, device="cuda",
         require_iwad: bool = False,
     ) -> "DoomEngine":
         device = torch.device(device)
@@ -71,45 +73,60 @@ class DoomEngine:
             generator=generator,
         )
 
-    def _walls(self, state: GameState):
-        """(outputs, aux) of a walls/planes render, cameras Morton-sorted
-        when the batch is larger than 8 (aux stays in sorted order)."""
+    def _render(self, state: GameState, items: bool):
+        """(outputs, aux) of a render, cameras Morton-sorted when the
+        batch is larger than 8 (aux stays in sorted order)."""
         perm = None
         if self.config.camera_sort and state.batch > 8:
             state, perm = sort_state(state)
-        idx, rgb, aux = render_walls_planes(
-            self.level, self.config,
-            state.pos[:, 0], state.pos[:, 1], state.angle,
-            state.floor_height, state.sector_light, state.timestamp,
-        )
+        args = (state.pos[:, 0], state.pos[:, 1], state.angle,
+                state.floor_height, state.sector_light)
+        if items:
+            idx, rgb, aux = render_frame(
+                self.level, self.config, *args, state.mobj_state,
+                state.timestamp,
+            )
+        else:
+            idx, rgb, aux = render_walls_planes(
+                self.level, self.config, *args, state.timestamp,
+            )
         out = (idx, rgb)
         if perm is not None:
             out = unsort_out(out, perm)
         return out, aux
 
+    def render(self, state: GameState):
+        """Full frame -> (idx [B,H,W] with -1 = unwritten, rgb packed
+        0xRRGGBB [B,H,W])."""
+        return self._render(state, items=True)[0]
+
+    def render_counters(self, state: GameState) -> dict:
+        """Summed capacity counters of a full render: {overflow,
+        live_dropped, items_dropped, item_overflow, item_block_dropped,
+        live_stale}.  All 0 proves the configured capacities (mid / clip
+        / item pools, max_visible_mobjs) dropped nothing: the frame is
+        exact."""
+        _, aux = self._render(state, items=True)
+        return {k: int(aux[k].sum()) for k in (
+            "overflow", "live_dropped", "items_dropped", "item_overflow",
+            "item_block_dropped", "live_stale")}
+
     def render_walls(self, state: GameState):
-        """Walls/planes/sky only (no things) -> (idx [B,H,W] with -1 =
-        unwritten, rgb packed 0xRRGGBB [B,H,W])."""
-        return self._walls(state)[0]
+        """Walls/planes/sky only (no things) -> (idx, rgb)."""
+        return self._render(state, items=False)[0]
 
     def render_walls_counters(self, state: GameState) -> dict:
         """Summed capacity counters of a walls/planes render:
         {overflow, live_dropped}.  All 0 proves the mid/clip pools
         dropped nothing."""
-        _, aux = self._walls(state)
+        _, aux = self._render(state, items=False)
         return {k: int(aux[k].sum()) for k in ("overflow", "live_dropped")}
 
-    def render(self, state: GameState):
-        raise NotImplementedError("slice 2/3: items are not ported yet")
-
-    def render_counters(self, state: GameState):
-        raise NotImplementedError("slice 2/3: items are not ported yet")
-
     def tick(self, state: GameState, controls, generator=None):
-        raise NotImplementedError("slice 2/3: the simulation is not ported yet")
+        raise NotImplementedError("the simulation is not ported yet")
 
     def rollout(self, state: GameState, controls_seq, generator=None):
-        raise NotImplementedError("slice 2/3: the simulation is not ported yet")
+        raise NotImplementedError("the simulation is not ported yet")
 
     def calibrate(self, states):
-        raise NotImplementedError("slice 2/3: calibration is not ported yet")
+        raise NotImplementedError("calibration is not ported yet")

@@ -50,9 +50,25 @@ _SIGNATURES = {
         ),
         "doom_cuda_error_string": ([_I], _C.c_char_p),
     },
+    "items": {
+        "doom_items": (
+            [_P] * 8                            # word col byty offth lz uy1
+            #                                     vpx vpy
+            + [_P, _P, _I, _I, _P]              # icnt, atlas, n, rows, pal
+            + [_P] * 7                          # clip span d2 lsx lsy lex
+            #                                     ley, clip cnt
+            + [_I, _I, _I, _I, _I, _F]          # B W H KI KC inv_255
+            + [_P, _P, _P, _P],                 # idx ld rgb stream
+            _I,
+        ),
+        "doom_items_error_string": ([_I], _C.c_char_p),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# per library: seconds from the start of its build_libraries call until
+# its nvcc ended (the builds of one call run side by side), and nvcc's
+# output
 build_seconds: dict[str, float] = {}
 build_log: dict[str, str] = {}
 
@@ -82,35 +98,54 @@ def _check_device():
         )
 
 
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_libraries(*names: str) -> None:
+    """Build every named library not built yet, one nvcc per source, all
+    started together.  Raises if any build fails."""
+    todo = [n for n in names if n not in _loaded and not _lib_path(n).exists()]
+    if not todo:
+        return
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, PATH, "
+                           "/usr/local/cuda/bin)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = {}
+    for name in todo:
+        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        jobs[name] = (proc, tmp)
+    failed = []
+    for name, (proc, tmp) in jobs.items():
+        build_log[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n{build_log[name]}")
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built from csrc/<name>.cu on
     first use."""
     if name in _loaded:
         return _loaded[name]
     _check_device()
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not lib_path.exists():
-        nvcc = nvcc_path()
-        if nvcc is None:
-            raise RuntimeError("nvcc not found (CUDA_HOME, PATH, "
-                               "/usr/local/cuda/bin)")
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        build_seconds[name] = time.perf_counter() - t0
-        build_log[name] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{build_log[name]}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    build_libraries(name)
+    lib = ctypes.CDLL(str(_lib_path(name)))
     for fn, (argtypes, restype) in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes

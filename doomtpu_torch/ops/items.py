@@ -1,0 +1,235 @@
+"""The item composite: the deferred pass's item pool folded over the
+paint frame.
+
+Counterpart of doomtpu/ops/pallas_items.py.  `composite_items` launches
+the hand-written CUDA kernel (csrc/items.cu) on CUDA tensors and runs
+`composite_items_reference`, its plain PyTorch version, on CPU tensors.
+Both give the same bits.
+
+What is computed, per camera and screen column, over the column's
+`icnt` pool slots from the farthest (slot icnt-1) to the nearest (0):
+
+- with a clip pool, a sprite slot's rows [ct, cb] are first clipped
+  against every clip record of the column whose seg lies in front of
+  the sprite (renderer/map_objects.rs:127-166; the JAX `_kernel`'s
+  in-kernel clip, or the XLA clip reductions of render/things.py);
+- per row y in [ct, cb]: ay = (y - ty) / (by - ty), texel row
+  wrap_tex(as_i16(th + ay * uy1) + off_y, th), texel and opacity from
+  the column atlas; opaque texels overwrite (the painter's order,
+  map_objects.rs:216-240);
+- the written pixels are shaded (palette, light diminish,
+  bitmap_render.rs:190-208) and merged over idx / ld / rgb, with
+  ld = light | zdist | written.
+
+Pools are slot-major: each item plane is [B, KI, W] (`ipool` stacks
+ITEM_PLANES of them, see render/things.py), each clip plane [B, KC, W].
+idx / ld / rgb [B, H, W] are updated in place and returned.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from doomtpu_torch.config import RenderConfig
+from doomtpu_torch.ops.paint import (
+    KIND_MID, LD_WRITTEN, SPAN_DC, SPAN_E2B, SPAN_E2T, _consts,
+)
+from doomtpu_torch.render.device import DeviceLevel
+from doomtpu_torch.render.jmath import (
+    F32, I32, as_i16, f32, fdiv, is_left_of, smul, wrap_tex,
+)
+
+SPR_MARK = 1 << 29   # item word flag: the slot is a sprite (seg-clippable)
+# word, atlas column, by|ty, off_y|th, light|zdist, uy1 bits, vpx, vpy
+ITEM_PLANES = 8
+CLIP_FIELDS = ("span", "d2", "lsx", "lsy", "lex", "ley")
+
+
+def _lo16(v):
+    return (v << 16) >> 16
+
+
+def _check(level: DeviceLevel, cfg: RenderConfig, ipool, icnt, idx, ld, rgb,
+           clip):
+    dev = idx.device
+    P, B, KI, W = ipool.shape
+    H = cfg.height
+    need = ITEM_PLANES if clip is not None else ITEM_PLANES - 2
+    want = {"ipool": (ipool, (P, B, KI, W)), "icnt": (icnt, (B, W)),
+            "idx": (idx, (B, H, W)), "ld": (ld, (B, H, W)),
+            "rgb": (rgb, (B, H, W))}
+    if clip is not None:
+        KC = clip["span"].shape[1]
+        want.update({f"clip {k}": (clip[k], (B, KC, W)) for k in CLIP_FIELDS})
+        want["clip cnt"] = (clip["cnt"], (B, W))
+    for name, (t, shape) in want.items():
+        if t.dtype != I32 or tuple(t.shape) != shape:
+            raise ValueError(f"composite_items: {name} must be int32 {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"composite_items: {name} is on {t.device}, idx "
+                             f"on {dev}")
+    if P < need or W != cfg.width:
+        raise ValueError(f"composite_items: ipool has {P} planes of width "
+                         f"{W}; need {need} of width {cfg.width}")
+    for name in ("atlas_cm", "palette_packed"):
+        t = getattr(level, name)
+        if t.device != dev or t.dtype != I32 or not t.is_contiguous():
+            raise ValueError(f"composite_items: level.{name} must be "
+                             f"contiguous int32 on {dev}")
+
+
+def composite_items(level: DeviceLevel, cfg: RenderConfig, ipool, icnt, idx,
+                    ld, rgb, clip=None):
+    """Fold the item pool into (idx, ld, rgb), in place.  CUDA tensors
+    launch the kernel (csrc/items.cu); CPU tensors run
+    `composite_items_reference`.  Anything else raises.
+
+    ipool: [ITEM_PLANES, B, KI, W] i32 (planes 6-7, vpx / vpy, are read
+    only with a clip pool); icnt [B, W]; clip: None or the clip pool of
+    render/things.pools_from_paint ([B, KC, W] planes and cnt)."""
+    _check(level, cfg, ipool, icnt, idx, ld, rgb, clip)
+    if idx.device.type == "cpu":
+        return composite_items_reference(level, cfg, ipool, icnt, idx, ld,
+                                         rgb, clip)
+    if idx.device.type != "cuda":
+        raise ValueError(f"composite_items: no kernel for device {idx.device}")
+    from doomtpu_torch.ops.build import load_library
+
+    lib = load_library("items")
+    _, B, KI, W = ipool.shape
+    c = lambda t: t.contiguous()
+    planes = [c(ipool[i]) for i in range(ipool.shape[0])]
+    icnt = c(icnt)
+    for name, t in (("idx", idx), ("ld", ld), ("rgb", rgb)):
+        if not t.is_contiguous():
+            raise ValueError(f"composite_items: {name} must be contiguous "
+                             "(it is updated in place)")
+    if clip is not None:
+        cp = [c(clip[k]) for k in CLIP_FIELDS] + [c(clip["cnt"])]
+        KC = clip["span"].shape[1]
+    else:
+        cp = [None] * (len(CLIP_FIELDS) + 1)
+        KC = 0
+        planes += [None] * (ITEM_PLANES - len(planes))
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    err = lib.doom_items(
+        *[ptr(t) for t in planes[:ITEM_PLANES]], ptr(icnt),
+        ptr(level.atlas_cm), level.atlas_cm.numel(), level.atlas_rows,
+        ptr(level.palette_packed), *[ptr(t) for t in cp],
+        B, W, cfg.height, KI, KC, _consts(cfg)["inv_255"],
+        ptr(idx), ptr(ld), ptr(rgb), ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"items kernel launch failed: CUDA error {err} "
+                           f"({lib.doom_items_error_string(err).decode()})")
+    composite_items.launches += 1
+    return idx, ld, rgb
+
+
+composite_items.launches = 0
+
+
+def clipped_words(ipool, clip, H: int):
+    """The word plane with the sprite seg clip applied, as the JAX XLA
+    path packs it (render/things.py clip reductions): on sprite slots
+    ct' = min(max(ct, tsc), H) and cb' = min(cb, bsc), where tsc / bsc
+    are the tightest top / bottom of the clip records in front of the
+    sprite.  Folding these words without a clip pool gives the same
+    frame as folding ipool with one."""
+    word = ipool[0]
+    B, KI, W = word.shape
+    vpx, vpy = ipool[6].view(F32), ipool[7].view(F32)
+    tsc = torch.full((B, KI, W), -1, dtype=I32, device=word.device)
+    bsc = torch.full((B, KI, W), H, dtype=I32, device=word.device)
+    spans, d2 = clip["span"], clip["d2"]
+    for kc in range(spans.shape[1]):
+        row = lambda k: clip[k][:, kc:kc + 1]                 # [B, 1, W]
+        fv = lambda k: row(k).view(F32)
+        cw = row("span")
+        front = (kc < clip["cnt"])[:, None] & ~is_behind_vertex(
+            fv("lsx"), fv("lsy"), fv("lex"), fv("ley"), vpx, vpy)
+        is_mid = ((cw >> 29) & 3) == KIND_MID
+        e2t = (cw & SPAN_E2T) != 0
+        e2b = (cw & SPAN_E2B) != 0
+        dc = ((cw & SPAN_DC) != 0) & is_mid
+        y0, y1 = ((cw >> 8) & 255) - 1, (cw & 255) - 1
+        byf, tyf = d2[:, kc:kc + 1] >> 16, _lo16(d2[:, kc:kc + 1])
+        tsc = torch.maximum(tsc, torch.maximum(
+            torch.where(front & e2t, y1, -1), torch.where(front & dc, tyf, -1)))
+        bsc = torch.minimum(bsc, torch.minimum(
+            torch.where(front & e2b, y0, H), torch.where(front & is_mid, byf, H)))
+    ct = ((word >> 16) & 0x1FF) - 1
+    cb = _lo16(word) - 1
+    ct = torch.clamp(torch.maximum(ct, tsc), max=H)
+    cb = torch.minimum(cb, bsc)
+    clipped = (((ct + 1) & 0xFFFF) << 16) | ((cb + 1) & 0xFFFF) | SPR_MARK
+    return torch.where((word & SPR_MARK) != 0, clipped, word)
+
+
+def is_behind_vertex(lsx, lsy, lex, ley, vx, vy):
+    """bitmap_render.rs:137-165 (batched, broadcasting args): the seg
+    ls -> le is not in front of the vertex v."""
+    min_x = torch.minimum(lsx, lex)
+    max_x = torch.maximum(lsx, lex)
+    return (min_x > vx) | (
+        (max_x > vx) & ~is_left_of(vx, vy, lsx, lsy, lex, ley)
+    )
+
+
+def composite_items_reference(level: DeviceLevel, cfg: RenderConfig, ipool,
+                              icnt, idx, ld, rgb, clip=None):
+    """Plain PyTorch composite: the clip reductions, then the XLA fold of
+    render/things.py (a Python loop over slots, farthest first, with
+    [B, H, W] masks), then the shade.  Same arguments and in-place
+    outputs as `composite_items`, and the same bits."""
+    _check(level, cfg, ipool, icnt, idx, ld, rgb, clip)
+    H = cfg.height
+    dev = idx.device
+    KI = ipool.shape[2]
+    word = clipped_words(ipool, clip, H) if clip is not None else ipool[0]
+    rows = level.atlas_rows
+    n_atlas = level.atlas_cm.numel()
+    yy = torch.arange(H, dtype=I32, device=dev)[None, :, None]
+    texel_v = torch.zeros_like(idx)
+    lz_v = torch.zeros_like(idx)
+    touched = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
+    for k in reversed(range(KI)):
+        ok = (k < icnt)[:, None, :]                           # [B, 1, W]
+        if not bool(ok.any()):
+            continue
+        plane = lambda i: ipool[i][:, k][:, None, :]          # [B, 1, W]
+        w_k = word[:, k][:, None, :]
+        ct = ((w_k >> 16) & 0x1FF) - 1
+        cb = _lo16(w_k) - 1
+        by, ty = plane(2) >> 16, _lo16(plane(2))
+        off_y, th = plane(3) >> 16, _lo16(plane(3))
+        uy1 = plane(5).view(F32)
+        cover = ok & (yy >= ct) & (yy <= cb)
+        ay = fdiv(f32(yy - ty), f32(by - ty))
+        tyv = as_i16(f32(th) + smul(ay, uy1)) + off_y
+        tyv = wrap_tex(tyv, torch.clamp(th, min=1))
+        t_ix = torch.clamp(plane(1) * rows + tyv, 0, n_atlas - 1)
+        packed = level.atlas_cm[t_ix.long()]
+        write = cover & ((packed & 0x100) != 0)
+        texel_v = torch.where(write, packed & 0xFF, texel_v)
+        lz_v = torch.where(write, plane(4), lz_v)
+        touched = touched | write
+    light = lz_v >> 16
+    zd = _lo16(lz_v)
+    factor = f32(light) * _consts(cfg)["inv_255"] - smul(f32(zd), 1.0 / 4096.0)
+    factor = torch.clamp(factor, min=0.0)
+    rgbw = level.palette_packed[texel_v.long()]
+    shaded = torch.zeros_like(idx)
+    for shift in (16, 8, 0):
+        chan = f32((rgbw >> shift) & 0xFF)
+        byte = torch.clamp(torch.trunc(chan * factor), 0.0, 255.0).to(I32)
+        shaded = shaded | (byte << shift)
+    idx.copy_(torch.where(touched, texel_v, idx))
+    ld.copy_(torch.where(touched, lz_v | LD_WRITTEN, ld))
+    rgb.copy_(torch.where(touched, shaded, rgb))
+    return idx, ld, rgb
+

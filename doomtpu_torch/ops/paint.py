@@ -42,7 +42,7 @@ import math
 import numpy as np
 import torch
 
-from doomtpu.config import (
+from doomtpu_torch.config import (
     ASPECT_RATIO_CORRECTION,
     FLAT_SIZE,
     PLAYER_EYE_HEIGHT,

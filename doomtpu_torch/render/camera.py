@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from doomtpu.config import (
+from doomtpu_torch.config import (
     ASPECT_RATIO_CORRECTION, PLAYER_EYE_HEIGHT, RenderConfig,
 )
 from doomtpu_torch.render.device import DeviceLevel

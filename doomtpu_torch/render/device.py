@@ -1,14 +1,12 @@
 """Device-resident level tables for the torch renderer.
 
 Counterpart of doomtpu/render/device.py.  One `DeviceLevel` per loaded
-map: every camera-independent quantity the walls/planes/sky path needs,
-computed once on the host with numpy and moved to the given device.
-The JAX level's TPU packings (texel rows 4 per word, column atlases,
-one-hot operands) have no counterpart: the paint kernel reads the
-unpacked `tex_pixels`, `flat_pixels` and `sky_pixels` tables directly.
-
-Sprite, mobj-placement and state tables beyond what `GameState.initial`
-reads belong to the item pass and are not built here.
+map: every camera-independent quantity the render path needs, computed
+once on the host with numpy and moved to the given device.  The JAX
+level's TPU packings (texel rows 4 per word, the bf16 column atlases,
+the 40-word item rows, one-hot operands) have no counterpart: the paint
+kernel reads the unpacked `tex_pixels`, `flat_pixels` and `sky_pixels`
+tables, the item kernel the unpacked column atlas `atlas_cm`.
 """
 
 from __future__ import annotations
@@ -18,10 +16,12 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from doomtpu.assets.bundle import LevelAssets
-from doomtpu.config import SKY_TEXTURE_HEIGHT, SKY_TEXTURE_WIDTH
-from doomtpu.info.tables import InfoTables
-from doomtpu.level.tables import MapTables
+from doomtpu_torch.assets.bundle import LevelAssets
+from doomtpu_torch.config import (
+    FLAT_SIZE, SKY_TEXTURE_HEIGHT, SKY_TEXTURE_WIDTH,
+)
+from doomtpu_torch.info.tables import InfoTables
+from doomtpu_torch.level.tables import MapTables
 
 
 def _sky_pixels(tex_pixels: np.ndarray, sky_tex: int) -> np.ndarray:
@@ -33,6 +33,30 @@ def _sky_pixels(tex_pixels: np.ndarray, sky_tex: int) -> np.ndarray:
     sw = min(src.shape[1], SKY_TEXTURE_WIDTH)
     sky[:sh, :sw] = src[:sh, :sw]
     return sky
+
+
+def _atlas(a: LevelAssets) -> tuple[np.ndarray, int]:
+    """(atlas_cm, rows): every texture, flat and sprite column as one
+    row of texel | opaque << 8, flattened [C * rows] (JAX device.py's
+    atlas_cols / atlas_cm build, without its bf16 and packed copies)."""
+    T, TH, TW = a.tex_pixels.shape
+    F = a.flat_pixels.shape[0]
+    P, PH, PW = a.spr_pixels.shape
+    rows = max(TH, FLAT_SIZE, PH)
+
+    def columns(pixels, mask, n, h, w):
+        out = np.zeros((n * w, rows), np.int32)
+        cm = pixels.astype(np.int32) | (mask.astype(np.int32) << 8)
+        out[:, :h] = np.where(mask, cm, 0).transpose(0, 2, 1).reshape(n * w, h)
+        return out
+
+    flat_mask = np.ones(a.flat_pixels.shape, bool)
+    atlas = np.concatenate([
+        columns(a.tex_pixels, a.tex_mask, T, TH, TW),
+        columns(a.flat_pixels, flat_mask, F, FLAT_SIZE, FLAT_SIZE),
+        columns(a.spr_pixels, a.spr_mask, P, PH, PW),
+    ])
+    return atlas.reshape(-1), rows
 
 
 _I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
@@ -82,9 +106,27 @@ class DeviceLevel:
     tex_w: torch.Tensor           # [T] i32
     tex_h: torch.Tensor           # [T] i32
     sky_pixels: torch.Tensor      # [128,256] i32 (port only, see _sky_pixels)
-    # --- spawn state (GameState.initial) ----------------------------------
+    # --- sprites (the item pass) -------------------------------------------
+    spr_w: torch.Tensor           # [P] i32
+    spr_h: torch.Tensor           # [P] i32
+    spr_top: torch.Tensor         # [P] i32
+    spr_table: torch.Tensor       # [NSPR, MAXFRAME, 8] i32 picture ids
+    # column-major sampling atlas over [wall texture columns | flat
+    # columns | sprite columns], flattened: texel | opaque << 8 at
+    # column * atlas_rows + row (the JAX level's atlas_cm)
+    atlas_cm: torch.Tensor        # [C * ROWS] i32
+    # --- info tables -------------------------------------------------------
+    state_sprite: torch.Tensor      # [NS] i32
+    state_frame: torch.Tensor       # [NS] i32
+    state_full_bright: torch.Tensor  # [NS] bool
     state_tics: torch.Tensor        # [NS] i32
+    # --- map objects (static placement; the state lives in GameState) -------
+    mobj_pos: torch.Tensor          # [MO,2] f32
+    mobj_angle: torch.Tensor        # [MO] f32
+    mobj_sector: torch.Tensor       # [MO] i32
     mobj_spawn_state: torch.Tensor  # [MO] i32
+    # segs with a drawable two-sided middle texture (the masked mids)
+    dseg_ix: torch.Tensor           # [D] i32
 
     # static metadata
     tex_sizes_pow2: bool = False
@@ -94,8 +136,13 @@ class DeviceLevel:
     # some wall-piece texture is wider than 128 (the texel column clamp
     # of the paint kernel is 256 then, else 128)
     texq_wide: bool = False
+    # rows per atlas column: max(texture height, 64, sprite height)
+    atlas_rows: int = 0
+    # columns per sprite picture in the atlas (the padded sprite width)
+    spr_pw: int = 0
 
-    STATIC_FIELDS = ("tex_sizes_pow2", "paint_ok", "texq_wide")
+    STATIC_FIELDS = ("tex_sizes_pow2", "paint_ok", "texq_wide", "atlas_rows",
+                     "spr_pw")
 
     @classmethod
     def tensor_fields(cls) -> tuple[str, ...]:
@@ -118,6 +165,16 @@ class DeviceLevel:
     @property
     def num_mobjs(self) -> int:
         return self.mobj_spawn_state.shape[0]
+
+    @property
+    def col_flat_off(self) -> int:
+        """First flat column of the atlas."""
+        return self.tex_pixels.shape[0] * self.tex_pixels.shape[2]
+
+    @property
+    def col_spr_off(self) -> int:
+        """First sprite column of the atlas."""
+        return self.col_flat_off + self.flat_pixels.shape[0] * FLAT_SIZE
 
     # ------------------------------------------------------------------
     @classmethod
@@ -160,8 +217,13 @@ class DeviceLevel:
         keep = ~(
             ((t.thing_type >= 1) & (t.thing_type <= 4)) | (t.thing_type == 11)
         )
+        ids = np.nonzero(keep)[0]
         mobj_info_ix = np.array(
-            [dn[int(t.thing_type[i])] for i in np.nonzero(keep)[0]], np.int32
+            [dn[int(t.thing_type[i])] for i in ids], np.int32
+        )
+        mobj_pos = t.thing_pos[ids]
+        mobj_sector = np.array(
+            [t.sector_at(float(p[0]), float(p[1])) for p in mobj_pos], np.int32
         )
 
         i16c = lambda x: np.clip(np.trunc(x), -32768, 32767).astype(np.int32)
@@ -170,6 +232,7 @@ class DeviceLevel:
         # uppers): the paint path needs them fully opaque
         two_sided_np = (flags & 4) != 0
         mid_np = np.asarray(a.side_middle_tex[fs_safe])
+        dseg_ix = np.nonzero(two_sided_np & (mid_np >= 0))[0].astype(np.int32)
         low_np = np.asarray(a.side_lower_tex[fs_safe])
         up_np = np.asarray(a.side_upper_tex[fs_safe])
         wall_piece_tex = np.unique(np.concatenate([
@@ -190,6 +253,7 @@ class DeviceLevel:
             and sky_is_opaque
         )
         pal = a.palette.astype(np.int64)
+        atlas_cm, atlas_rows = _atlas(a)
 
         arrays = dict(
             seg_v1=t.vertexes[t.seg_v[:, 0]],
@@ -230,14 +294,28 @@ class DeviceLevel:
             tex_w=a.tex_w,
             tex_h=a.tex_h,
             sky_pixels=_sky_pixels(a.tex_pixels, int(a.sky_tex)),
+            spr_w=a.spr_w,
+            spr_h=a.spr_h,
+            spr_top=a.spr_top,
+            spr_table=a.spr_table,
+            atlas_cm=atlas_cm,
+            state_sprite=info.state_sprite,
+            state_frame=info.state_frame,
+            state_full_bright=info.state_full_bright,
             state_tics=info.state_tics,
+            mobj_pos=mobj_pos,
+            mobj_angle=t.thing_angle[ids],
+            mobj_sector=mobj_sector,
             mobj_spawn_state=info.mobj_spawn[mobj_info_ix],
+            dseg_ix=dseg_ix,
             tex_sizes_pow2=bool(
                 np.all((a.tex_w & (a.tex_w - 1)) == 0)
                 and np.all((a.tex_h & (a.tex_h - 1)) == 0)
             ),
             paint_ok=paint_ok,
             texq_wide=texq_wide,
+            atlas_rows=atlas_rows,
+            spr_pw=a.spr_pixels.shape[2],
         )
         return level_from_numpy(arrays, device)
 
@@ -246,6 +324,7 @@ _DTYPES = {
     "seg_v1": _F32, "seg_v2": _F32, "node_xy": _F32, "node_dxy": _F32,
     "seg_two_sided": _BOOL, "seg_unpeg_top": _BOOL, "seg_unpeg_bottom": _BOOL,
     "seg_draw_ceiling": _BOOL, "seg_sky_hack": _BOOL, "flat_is_sky": _BOOL,
+    "state_full_bright": _BOOL, "mobj_pos": _F32, "mobj_angle": _F32,
 }
 
 
@@ -253,10 +332,10 @@ def level_from_numpy(fields_: dict, device) -> DeviceLevel:
     """The port's level from numpy arrays keyed by field name.
 
     Takes the JAX DeviceLevel's fields (`np.asarray` of each, plus its
-    static flags as Python bools) or the port's own build; fields the
-    port does not use are ignored, and `sky_pixels` is derived from
-    `tex_pixels`/`sky_tex` when absent.  Every tensor is moved to
-    `device` with the port's dtype."""
+    static fields as Python values) or the port's own build; fields the
+    port does not use are ignored, `sky_pixels` is derived from
+    `tex_pixels`/`sky_tex` and `spr_pw` from `spr_pixels` when absent.
+    Every tensor is moved to `device` with the port's dtype."""
     kw = {}
     for name in DeviceLevel.tensor_fields():
         if name == "sky_pixels" and name not in fields_:
@@ -267,5 +346,8 @@ def level_from_numpy(fields_: dict, device) -> DeviceLevel:
             np.array(arr, order="C"), dtype=_DTYPES.get(name, _I32)
         ).to(device)
     for name in DeviceLevel.STATIC_FIELDS:
-        kw[name] = bool(fields_[name])
+        if name == "spr_pw" and name not in fields_:
+            kw[name] = int(np.shape(fields_["spr_pixels"])[2])
+        else:
+            kw[name] = type(getattr(DeviceLevel, name))(fields_[name])
     return DeviceLevel(**kw)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from doomtpu.level.tables import NODE_IS_SUBSECTOR
+from doomtpu_torch.level.tables import NODE_IS_SUBSECTOR
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import I32, f32, is_left_of
 

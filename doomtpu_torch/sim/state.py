@@ -10,7 +10,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from doomtpu.config import CLOCK_HZ
+from doomtpu_torch.config import CLOCK_HZ
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import F32, I32, div_const
 

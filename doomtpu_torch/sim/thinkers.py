@@ -13,8 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from doomtpu.info.tables import InfoTables
-from doomtpu.level.tables import MapTables
+from doomtpu_torch.info.tables import InfoTables
+from doomtpu_torch.level.tables import MapTables
 
 # lights.rs:9-13
 SLOW_DARK = 35

@@ -1,5 +1,6 @@
-"""Tests that need a CUDA card: the paint kernel against its plain
-PyTorch version, and the slice on the card against the slice on the CPU.
+"""Tests that need a CUDA card: the paint and item kernels against their
+plain PyTorch versions, and render / render_walls on the card against
+the same calls on the CPU.
 
 This file imports no JAX, so it also runs where there is a card and no
 JAX; the repo's conftest imports JAX, so leave it out there:
@@ -15,10 +16,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from doomtpu.wad import synth  # noqa: E402
+from doomtpu_torch.wad import synth  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
+from doomtpu_torch.config import RenderConfig  # noqa: E402
+from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
 from doomtpu_torch.render import camera as cam  # noqa: E402
+from doomtpu_torch.render import things  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -34,7 +38,7 @@ VIEWS = [
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the paint kernel has no CPU mode)")
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -81,20 +85,56 @@ def test_paint_kernel_equals_plain_version(engines):
         assert torch.equal(v, want[k]), k
 
 
-def test_render_walls_on_card_equals_cpu(engines):
-    """B=16 spread poses, so the camera sort runs."""
-    gpu, cpu = engines
-    rng = np.random.default_rng(0)
-    t = cpu.tables
+def _spread(t, n, seed=0):
+    rng = np.random.default_rng(seed)
     left, right, top, bottom = [float(v) for v in t.bbox]
     poses = []
-    while len(poses) < 16:
+    while len(poses) < n:
         x, y = rng.uniform(left, right), rng.uniform(top, bottom)
         s = t.sector_at(x, y)
         if s >= 0 and t.sector_floor_h[s] < t.sector_ceil_h[s]:
             poses.append((x, y, rng.uniform(0, 2 * np.pi)))
-    pos = np.asarray([p[:2] for p in poses], np.float32)
-    ang = np.asarray([p[2] for p in poses], np.float32)
+    return (np.asarray([p[:2] for p in poses], np.float32),
+            np.asarray([p[2] for p in poses], np.float32))
+
+
+@pytest.mark.parametrize("ki", [8, 24])
+def test_item_kernel_equals_plain_version(engines, ki):
+    """The deferred pass's item pool on 8 views of the demo map, through
+    the kernel and through its plain version, clip pool included."""
+    eng, _ = engines
+    cfg = RenderConfig(item_capacity=ki)
+    views = VIEWS * 2
+    st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
+                np.asarray([v[2] for v in views], np.float32))
+    px, py = st.pos[:, 0], st.pos[:, 1]
+    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
+                                st.floor_height, st.sector_light,
+                                st.timestamp)
+    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    out = tp.render_paint(eng.level, cfg, frame, order, st.angle, px, py,
+                          st.floor_height)
+    pools = things.pools_from_paint(out)
+    ipool, icnt, _ = things.item_pool(
+        eng.level, cfg, frame, pools, order, px, py, st.angle,
+        st.floor_height, st.sector_light, st.mobj_state)
+    bg = lambda: [out[k].clone() for k in ("idx", "ld", "rgb")]
+    before = ti.composite_items.launches
+    got = ti.composite_items(eng.level, cfg, ipool, icnt, *bg(),
+                             clip=pools[0])
+    torch.cuda.synchronize()
+    assert ti.composite_items.launches == before + 1
+    want = ti.composite_items_reference(eng.level, cfg, ipool, icnt, *bg(),
+                                        clip=pools[0])
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert int((got[0] != out["idx"]).sum()) > 100
+
+
+def test_render_walls_on_card_equals_cpu(engines):
+    """B=16 spread poses, so the camera sort runs."""
+    gpu, cpu = engines
+    pos, ang = _spread(cpu.tables, 16)
     before = tp.paint.launches
     idx, rgb = gpu.render_walls(_state(gpu, pos, ang))
     torch.cuda.synchronize()
@@ -105,3 +145,24 @@ def test_render_walls_on_card_equals_cpu(engines):
     assert torch.equal(rgb.cpu(), rgb_c)
     assert gpu.render_walls_counters(_state(gpu, pos, ang)) == {
         "overflow": 0, "live_dropped": 0}
+
+
+@pytest.mark.parametrize("wad_fn", ["demo_wad", "e1m1_scale_wad"])
+def test_render_on_card_equals_cpu(cuda, wad_fn):
+    """Full frames, B=16 spread poses (the camera sort runs), pools deep
+    enough to drop nothing."""
+    cfg = RenderConfig(mid_capacity=40, clip_capacity=64, item_capacity=24)
+    wad = getattr(synth, wad_fn)()
+    gpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=cuda)
+    cpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu")
+    pos, ang = _spread(cpu.tables, 16)
+    before = (tp.paint.launches, ti.composite_items.launches)
+    idx, rgb = gpu.render(_state(gpu, pos, ang))
+    torch.cuda.synchronize()
+    assert tp.paint.launches > before[0]
+    assert ti.composite_items.launches > before[1]
+    idx_c, rgb_c = cpu.render(_state(cpu, pos, ang))
+    assert torch.equal(idx.cpu(), idx_c)
+    assert torch.equal(rgb.cpu(), rgb_c)
+    counters = gpu.render_counters(_state(gpu, pos, ang))
+    assert set(counters.values()) == {0}, counters

@@ -1,12 +1,23 @@
-"""The slice end to end: doomtpu_torch DoomEngine.render_walls against
-the JAX DoomEngine.render_walls on the CPU (the JAX engine's XLA path:
-wall_scan + resolve + shade).  B=16 spread poses on the demo fixture,
-so the camera sort (B > 8) runs on both sides; the JAX GameState is
-moved across with state_from_numpy.  Tolerance: exact equality of idx
-and rgb, and every capacity counter 0 on both sides.
+"""The port end to end: doomtpu_torch DoomEngine.render and
+render_walls against the JAX DoomEngine on the CPU (the JAX engine's
+XLA path: wall_scan + resolve + the deferred pass + shade).
+
+- demo: B=16 spread poses, so the camera sort (B > 8) runs on both
+  sides; the JAX GameState is moved across with state_from_numpy;
+- e1m1-scale and doom1-asset-scale: B=4 at 160x96, pools deep enough
+  that neither side drops a record;
+- the golden frames (tests/golden/frames.npz, demo and e1m1_scale): the
+  port's render_frame at the pinned poses equals the committed idx and
+  its rgb the committed hash.
+
+Tolerance: exact equality of idx and rgb, and every capacity counter
+equal on both sides (0 here).
 """
 
+import dataclasses
+import hashlib
 import math
+import os
 
 import numpy as np
 import pytest
@@ -15,11 +26,15 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from doomtpu.config import RenderConfig  # noqa: E402
 from doomtpu.engine import DoomEngine as JaxEngine  # noqa: E402
 from doomtpu.sim.state import GameState as JaxState  # noqa: E402
 from doomtpu.wad import synth  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
+from doomtpu_torch.render.device import DeviceLevel  # noqa: E402
+from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
+from doomtpu_torch.render.frame import render_frame  # noqa: E402
 from doomtpu_torch.sim.state import state_from_numpy  # noqa: E402
 
 
@@ -93,11 +108,107 @@ def test_render_walls_counters_are_zero(engines, states):
     assert je.render_walls_counters(js) == {"overflow": 0, "live_dropped": 0}
 
 
+def test_render_equals_jax(engines, states):
+    je, te = engines
+    js, ts = states
+    jidx, jrgb = je.render(js)
+    before = (tp.paint.launches, ti.composite_items.launches)
+    idx, rgb = te.render(ts)
+    # CPU: the plain versions
+    assert (tp.paint.launches, ti.composite_items.launches) == before
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(rgb.numpy(), np.asarray(jrgb))
+    # the items drew over the walls and planes
+    walls_idx, _ = te.render_walls(ts)
+    assert int((walls_idx != idx).sum()) > 1000
+    counters = te.render_counters(ts)
+    assert counters == je.render_counters(js)
+    assert set(counters.values()) == {0}
+
+
+MAP_CFG = RenderConfig(width=160, height=96, span_capacity=160,
+                       mid_capacity=40, clip_capacity=96, item_capacity=24)
+
+
+COUNTERS = ("overflow", "live_dropped", "items_dropped", "item_overflow",
+            "item_block_dropped", "live_stale")
+
+
+@pytest.mark.parametrize("wad_fn", ["e1m1_scale_wad", "doom1_scale_wad"])
+def test_render_equals_jax_on_maps(wad_fn):
+    """B=4 needs no camera sort, so one jitted JAX render_frame gives
+    the frame and its counters."""
+    from doomtpu.render.frame import render_frame as jax_render_frame
+
+    wad = getattr(synth, wad_fn)()
+    je = JaxEngine.from_wad_bytes(wad, "e1m1", config=MAP_CFG)
+    te = DoomEngine.from_wad_bytes(wad, "e1m1", config=MAP_CFG, device="cpu")
+    pos, ang = _spread_poses(je.tables, 4, seed=2)
+    js = je.new_game(4, key=jax.random.PRNGKey(0), pos=pos, angle=ang)
+    ts = state_from_numpy(
+        {f.name: np.asarray(getattr(js, f.name))
+         for f in dataclasses.fields(JaxState)}, "cpu")
+
+    def one(level, st):
+        idx, rgb, aux = jax_render_frame(
+            level, MAP_CFG, st.pos[:, 0], st.pos[:, 1], st.angle,
+            st.floor_height, st.sector_light, st.mobj_state, st.timestamp)
+        zero = jax.numpy.zeros((), jax.numpy.int32)
+        return idx, rgb, {k: aux.get(k, zero).sum() for k in COUNTERS}
+
+    jidx, jrgb, jcount = jax.jit(one)(je.level, js)
+    idx, rgb = te.render(ts)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(rgb.numpy(), np.asarray(jrgb))
+    walls_idx, _ = te.render_walls(ts)
+    assert int((walls_idx != idx).sum()) > 1000
+    counters = te.render_counters(ts)
+    assert counters == {k: int(v) for k, v in jcount.items()}
+    assert set(counters.values()) == {0}
+
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "frames.npz")
+
+
+@pytest.mark.parametrize("name", ["demo", "e1m1_scale"])
+def test_render_equals_golden(name, info):
+    """The poses, timestamps and spawn states of tests/test_golden.py,
+    through the port's render_frame (pools deep enough to drop
+    nothing)."""
+    from scripts.gen_golden import build_fixture, spawn_mobjs
+
+    golden = np.load(GOLDEN)
+    mt, assets = build_fixture(name, info)
+    _, _, ms = spawn_mobjs(mt, info)
+    level = DeviceLevel.build(mt, assets, info, "cpu")
+    cfg = dataclasses.replace(MAP_CFG, width=320, height=200)
+    n = int(golden[f"{name}_n_views"])
+    views = np.stack([golden[f"{name}_{vi}_view"] for vi in range(n)])
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    fh = [float(mt.sector_floor_h[mt.sector_at(v[0], v[1])]) for v in views]
+    idx, rgb, aux = render_frame(
+        level, cfg, f(views[:, 0]), f(views[:, 1]), f(views[:, 2]), f(fh),
+        torch.as_tensor(np.repeat(np.asarray(mt.sector_light, np.int32)[None],
+                                  n, 0)),
+        torch.as_tensor(np.repeat(np.asarray(ms, np.int32)[None], n, 0)),
+        f(views[:, 3]),
+    )
+    for k in ("overflow", "items_dropped", "item_overflow"):
+        assert int(aux[k].sum()) == 0, k
+    for vi in range(n):
+        np.testing.assert_array_equal(idx[vi].numpy().astype(np.int16),
+                                      golden[f"{name}_{vi}_idx"])
+        r = rgb[vi].numpy().astype(np.int64)
+        rgb8 = np.stack([(r >> s) & 0xFF for s in (16, 8, 0)], -1).astype(
+            np.uint8)
+        assert hashlib.sha256(rgb8.tobytes()).digest() == bytes(
+            golden[f"{name}_{vi}_rgb_sha256"])
+
+
 def test_unported_entry_points_raise(engines, states):
     _, te = engines
     _, ts = states
-    for call in (lambda: te.render(ts), lambda: te.render_counters(ts),
-                 lambda: te.tick(ts, None), lambda: te.rollout(ts, None),
+    for call in (lambda: te.tick(ts, None), lambda: te.rollout(ts, None),
                  lambda: te.calibrate([ts])):
         with pytest.raises(NotImplementedError):
             call()

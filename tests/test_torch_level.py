@@ -48,6 +48,7 @@ def _jax_fields(jl) -> dict:
                else np.asarray(getattr(jl, n)))
            for n in names if hasattr(jl, n)}
     out["sky_tex"] = np.asarray(jl.sky_tex)
+    out["spr_pixels"] = np.asarray(jl.spr_pixels)
     return out
 
 
@@ -56,7 +57,12 @@ def test_build_equals_jax_field_by_field(levels):
     fields = _jax_fields(jl)
     # every port field but the port's own unpacked sky table has a JAX twin
     assert set(DeviceLevel.tensor_fields()) - set(fields) == {"sky_pixels"}
-    del fields["sky_tex"]
+    # the item pass's tables are among them
+    assert {"spr_table", "state_sprite", "mobj_pos", "mobj_sector",
+            "dseg_ix", "atlas_cm"} <= set(fields)
+    assert tl.spr_pw == fields["spr_pixels"].shape[2]
+    assert tl.col_spr_off == jl.col_spr_off
+    del fields["sky_tex"], fields["spr_pixels"]
     for name, want in fields.items():
         got = getattr(tl, name)
         if name in DeviceLevel.STATIC_FIELDS:
@@ -108,8 +114,14 @@ def test_thinker_tables_equal_jax(demo_level):
 
 
 def _imports_jax(path: Path) -> list[str]:
+    return _bad_imports(path.read_text(), str(path.relative_to(ROOT)))
+
+
+def _bad_imports(source: str, name: str) -> list[str]:
+    """Imports in `source` whose top-level module is jax, jaxlib or the
+    JAX package doomtpu."""
     bad = []
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    for node in ast.walk(ast.parse(source, name)):
         if isinstance(node, ast.Import):
             mods = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -117,22 +129,23 @@ def _imports_jax(path: Path) -> list[str]:
         else:
             continue
         for m in mods:
-            top = m.split(".")[0]
-            if top == "jax" or top == "jaxlib" or m.startswith(
-                ("doomtpu.render", "doomtpu.sim", "doomtpu.ops.pallas",
-                 "doomtpu.engine", "doomtpu.parallel", "doomtpu.calibrate")
-            ):
-                bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {m}")
+            if m.split(".")[0] in ("jax", "jaxlib", "doomtpu"):
+                bad.append(f"{name}:{node.lineno} {m}")
     return bad
 
 
 def test_port_never_imports_jax():
     """Static scan (every process here has jax preloaded, so a runtime
     sys.modules check would prove nothing): no module of the port, nor
-    chip_smoke.py or the card-only tests, imports jax or a JAX-backed
-    module of doomtpu."""
+    chip_smoke.py or the card-only tests, imports jax, jaxlib or any
+    module of the JAX package doomtpu, not even a host-only one."""
     files = sorted((ROOT / "doomtpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 10
     bad = [b for f in files for b in _imports_jax(f)]
     assert not bad, bad
+    # the scan sees the forms it must reject, and only those
+    probe = ("import jaxlib\nfrom doomtpu.wad import synth\n"
+             "from doomtpu import config\nimport doomtpu_torch\n"
+             "from doomtpu_torch.wad import synth\n")
+    assert len(_bad_imports(probe, "probe")) == 3
