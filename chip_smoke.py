@@ -5,20 +5,35 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together), holds each kernel against its
-plain PyTorch version on the card, drives the port's main paths on the
-e1m1-scale fixture at 320x200 with 4096 spread cameras --
-DoomEngine.render_walls (walls, planes, sky) and DoomEngine.render (the
-full frame with sprites and masked mids) -- checks their output, then
-times them.  Any failed phase raises, so the script exits non-zero
-before its last line.  The last line is one JSON object naming the
-device; the line before it lists every kernel with its launches, error,
-times and bound.
+plain PyTorch version on the card, then drives the port's main paths
+with 4096 spread cameras at 320x200, each with the launch counts set to
+0 just before it and read just after:
+
+- e1m1-scale (paint-eligible): DoomEngine.render_walls (walls, planes,
+  sky through the paint kernel) and DoomEngine.render (the full frame:
+  the item kernel too);
+- e1m1-scale-masked (GRATE on some solid walls, so the paint kernel
+  does not take it): render_walls and render through the wall-scan
+  kernel, the resolve and the shade, then the item kernel.
+
+It checks their output against the CPU port on 16 cameras, then times
+them.  Any failed phase raises, so the script exits non-zero before its
+last line.  The last line is one JSON object naming the device; the
+line before it lists every kernel with its launches, error, times and
+bound.
 
 It needs a CUDA card and fails without one: nothing moves to the CPU.
+
+    python3 chip_smoke.py --ab ROOT_A ROOT_B
+
+times the e1m1-scale cell's render_walls and render through the port in
+two checkouts (say, a parent commit unpacked under build/ and this
+tree) on the same card, alternating A B B A, one process per timing.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -30,6 +45,8 @@ import time
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+B = 4096
+T0 = time.perf_counter()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -39,6 +56,10 @@ def check(cond: bool, msg: str) -> None:
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def phase(name: str) -> None:
+    log(f"---- {name} ({time.perf_counter() - T0:.1f} s into the run)")
 
 
 def spread_poses(t, n, seed=0):
@@ -79,7 +100,22 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def profile_render(call, state, card, log, plain_ms) -> None:
+def event_ms(fn, n):
+    """Mean device ms of n calls after a warm one (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def profile_render(call, state, card, plain_ms) -> None:
     """torch.profiler over one warm call: kernel launches, device busy
     time (the union of kernel intervals) and device time by op.  The
     device's idle share is given against the ms per batch measured
@@ -120,93 +156,61 @@ def profile_render(call, state, card, log, plain_ms) -> None:
         {e.key[:60]: round(dev_ms(e), 3) for e in top}))
 
 
-def main() -> int:
-    import torch
+class Smoke:
+    """Device, modules and the checks shared by the cells."""
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible; this script only runs on "
-              "the card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
+    def __init__(self, card, dev):
+        from doomtpu_torch.ops import items, layout, paint, scan
 
-    from doomtpu_torch.config import RenderConfig
-    from doomtpu_torch.engine import DoomEngine
-    from doomtpu_torch.ops import build
-    from doomtpu_torch.ops import items as items_mod
-    from doomtpu_torch.ops import paint as paint_mod
-    from doomtpu_torch.render import camera as cam
-    from doomtpu_torch.render import things
-    from doomtpu_torch.render.camsort import sort_state, unsort_out
-    from doomtpu_torch.wad import synth
+        self.card, self.dev = card, dev
+        self.paint, self.items, self.scan = paint, items, scan
+        self.layout = layout
+        self.composite = items.composite_items
+        self.kernels = {"paint": paint.paint, "items": self.composite,
+                        "scan": scan.scan}
 
-    composite = items_mod.composite_items
+    def zero_counts(self):
+        for fn in self.kernels.values():
+            fn.launches = 0
 
-    # ---- 1. device and build ---------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]} device "
-        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    log(f"nvcc: {build.nvcc_path() or 'not found'}")
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    build.build_libraries("paint", "items")
-    for name in ("paint", "items"):
-        build.load_library(name)
-        log(f"build: {name}.cu (nvcc ended "
-            f"{build.build_seconds.get(name, 0.0):.2f} s after the builds "
-            f"started)")
-        for line in build.build_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas: {line.strip()}")
-    log(f"build, both kernels in parallel: {time.perf_counter() - t0:.2f} s")
+    def counts(self) -> dict:
+        return {k: fn.launches for k, fn in self.kernels.items()}
 
-    def event_ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-            enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / n
+    def new_game(self, eng, n, poses=None):
+        import torch
 
-    # ---- 2. each kernel against its plain version ---------------------------
-    def new_game(eng, B, poses=None):
-        pos, ang = spread_poses(eng.tables, B) if poses is None else poses
-        return eng.new_game(B, pos=pos, angle=ang,
-                            generator=torch.Generator(dev).manual_seed(0))
+        pos, ang = spread_poses(eng.tables, n) if poses is None else poses
+        return eng.new_game(n, pos=pos, angle=ang,
+                            generator=torch.Generator(self.dev).manual_seed(0))
 
-    def stage_inputs(eng, st, cfg=None):
-        """Camera stage, order and paint inputs of a state."""
+    def frame_order(self, eng, st, cfg=None):
+        from doomtpu_torch.render import camera as cam
+
         lvl, cfg = eng.level, cfg or eng.config
         px, py = st.pos[:, 0], st.pos[:, 1]
         frame = cam.build_seg_frame(lvl, cfg, px, py, st.angle,
                                     st.floor_height, st.sector_light,
                                     st.timestamp)
-        order = cam.seg_order(lvl, cam.traversal_rank(lvl, px, py))
-        args = paint_mod.build_inputs(lvl, cfg, frame, order, st.angle,
-                                      px, py, st.floor_height)
+        return frame, cam.seg_order(lvl, cam.traversal_rank(lvl, px, py))
+
+    def stage_inputs(self, eng, st, cfg=None):
+        """Camera stage, order and paint inputs of a state."""
+        frame, order = self.frame_order(eng, st, cfg)
+        args = self.paint.build_inputs(eng.level, cfg or eng.config, frame,
+                                       order, st.angle, st.pos[:, 0],
+                                       st.pos[:, 1], st.floor_height)
         return frame, order, args
 
-    def compare_paint(eng, args, label):
+    # ---- each kernel against its plain version ------------------------------
+    def compare_paint(self, eng, args, label):
+        import torch
+
         lvl, cfg = eng.level, eng.config
-        got = outputs_of(paint_mod.paint(lvl, cfg, *args))
+        got = outputs_of(self.paint.paint(lvl, cfg, *args))
         torch.cuda.synchronize()
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
-        ref = outputs_of(paint_mod.paint_reference(lvl, cfg, *args))
+        ref = outputs_of(self.paint.paint_reference(lvl, cfg, *args))
         b.record()
         torch.cuda.synchronize()
         worst, diffs = 0, {}
@@ -224,24 +228,18 @@ def main() -> int:
             f"of {cfg.clip_capacity}")
         return worst, a.elapsed_time(b)
 
-    def item_inputs(eng, st, frame, order, out, cfg):
-        """(ipool, icnt, daux, clip pool) of the deferred pass."""
-        pools = things.pools_from_paint(out)
-        ipool, icnt, daux = things.item_pool(
-            eng.level, cfg, frame, pools, order, st.pos[:, 0], st.pos[:, 1],
-            st.angle, st.floor_height, st.sector_light, st.mobj_state)
-        return ipool, icnt, daux, pools[0]
+    def compare_items(self, eng, cfg, ipool, icnt, bg, clip, label):
+        import torch
 
-    def compare_items(eng, cfg, ipool, icnt, bg, clip, label):
         lvl = eng.level
         fresh = lambda: [x.clone() for x in bg]
-        got = composite(lvl, cfg, ipool, icnt, *fresh(), clip=clip)
+        got = self.composite(lvl, cfg, ipool, icnt, *fresh(), clip=clip)
         torch.cuda.synchronize()
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ref_in = fresh()
         a.record()
-        ref = items_mod.composite_items_reference(lvl, cfg, ipool, icnt,
-                                                  *ref_in, clip=clip)
+        ref = self.items.composite_items_reference(lvl, cfg, ipool, icnt,
+                                                   *ref_in, clip=clip)
         b.record()
         torch.cuda.synchronize()
         worst, diffs = 0, {}
@@ -259,70 +257,85 @@ def main() -> int:
         check(drawn > 0, f"items {label}: no item drew anything")
         return worst, a.elapsed_time(b)
 
-    def check_items(eng, st, cfg, label):
-        frame, order, args = stage_inputs(eng, st, cfg)
-        out = paint_mod.paint(eng.level, cfg, *args)
-        ipool, icnt, _, clip = item_inputs(eng, st, frame, order, out, cfg)
+    def compare_scan(self, eng, cfg, rows, scnt, label):
+        """K4 against scan_reference: cnt, overflow and every pool plane
+        below each column's count (the kernel writes no slot past it)."""
+        import torch
+
+        lvl = eng.level
+        got = self.scan.scan(lvl, cfg, rows, scnt)
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        ref = self.scan.scan_reference(lvl, cfg, rows, scnt)
+        b.record()
+        torch.cuda.synchronize()
+        K = cfg.span_capacity
+        below = (torch.arange(K, device=self.dev)[None, :, None]
+                 < ref["cnt"][:, None, :])
+        pairs = {"cnt": (got["cnt"], ref["cnt"]),
+                 "overflow": (got["overflow"], ref["overflow"])}
+        for i, name in enumerate(("span", "d1", "d2", "d3", "d4", "d5",
+                                  "d6")):
+            pairs[name] = (torch.where(below, got["pool"][i], 0),
+                           torch.where(below, ref["pool"][i], 0))
+        worst, diffs = 0, {}
+        for k, (g, r) in pairs.items():
+            d = (g != r).sum().item()
+            diffs[k] = d
+            if d:
+                worst = max(worst, (g.long() - r.long()).abs().max().item())
+        log(f"scan {label}: differing elements per output "
+            f"{json.dumps(diffs)}; peak records per column "
+            f"{int(ref['cnt'].max())} of {K}; overflow "
+            f"{int(ref['overflow'].sum())}")
+        check(all(v == 0 for v in diffs.values()),
+              f"scan {label}: kernel differs from scan_reference")
+        return worst, a.elapsed_time(b)
+
+    def row_bytes(self, rows, scnt, row_words):
+        """Bytes of the seg rows a kernel must read: `row_words` words of
+        each active row (k < scnt) and 9 words of each active piece of it
+        (edges, texture size, offset and id, and the one uy1 copy the
+        kernel takes), counted from this run's flags."""
+        import torch
+
+        L = self.layout
+        active = (torch.arange(rows.shape[1], device=rows.device)[None]
+                  < scnt[:, None])
+        flags = rows[..., L.R_FLAGS][active]
+        pieces = sum(int(((flags >> p) & 1).sum()) for p in range(4))
+        n_rows = int(active.sum())
+        return (n_rows * row_words + pieces * 9) * 4, n_rows, pieces
+
+    def item_inputs(self, eng, st, frame, order, pools, cfg):
+        """(ipool, icnt, daux) of the deferred pass."""
+        from doomtpu_torch.render import things
+
+        return things.item_pool(
+            eng.level, cfg, frame, pools, order, st.pos[:, 0], st.pos[:, 1],
+            st.angle, st.floor_height, st.sector_light, st.mobj_state)
+
+    def check_items(self, eng, st, cfg, label):
+        from doomtpu_torch.render import things
+
+        frame, order, args = self.stage_inputs(eng, st, cfg)
+        out = self.paint.paint(eng.level, cfg, *args)
+        pools = things.pools_from_paint(out)
+        ipool, icnt, _ = self.item_inputs(eng, st, frame, order, pools, cfg)
         bg = [out[k] for k in ("idx", "ld", "rgb")]
-        return compare_items(eng, cfg, ipool, icnt, bg, clip, label)[0]
+        return self.compare_items(eng, cfg, ipool, icnt, bg, pools[0],
+                                  label)[0]
 
-    demo = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", device=dev)
-    views = [(384.0, 256.0, 0.0), (900.0, 256.0, 2.5), (300.0, 700.0, 4.6),
-             (384.0, 256.0, 3.1)] * 2
-    demo_poses = (np.asarray([v[:2] for v in views], np.float32),
-                  np.asarray([v[2] for v in views], np.float32))
-    demo_st = new_game(demo, 8, demo_poses)
-    err_paint, _ = compare_paint(demo, stage_inputs(demo, demo_st)[2],
-                                 "demo B=8")
-    err_items = 0
-    for ki in (8, 24):
-        err_items = max(err_items, check_items(
-            demo, demo_st, RenderConfig(item_capacity=ki),
-            f"demo B=8 item_capacity={ki}"))
+    def check_scan(self, eng, st, cfg, label):
+        frame, order = self.frame_order(eng, st, cfg)
+        rows, scnt = self.paint.build_rows(eng.level, frame, order)
+        return self.compare_scan(eng, cfg, rows, scnt, label)[0]
 
-    # spread poses need deeper pools than the defaults (mid 8 / clip 24 /
-    # item 8): this script's own config, the library defaults stay as
-    # they are.  Item capacity 24 is the TPU bench's calibrated value.
-    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
-                       clip_capacity=64, item_capacity=24)
-    log(f"config: {cfg.width}x{cfg.height} mid_capacity={cfg.mid_capacity} "
-        f"clip_capacity={cfg.clip_capacity} item_capacity={cfg.item_capacity} "
-        f"render_chunk={cfg.render_chunk} camera_sort={cfg.camera_sort}")
-    e1 = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1", config=cfg,
-                                   device=dev)
-    st32 = new_game(e1, 32)
-    args32 = stage_inputs(e1, st32)[2]
-    err_paint = max(err_paint, compare_paint(e1, args32, "e1m1-scale B=32")[0])
-    err_items = max(err_items, check_items(e1, st32, cfg,
-                                           "e1m1-scale B=32"))
-    # textures wider than 128 and ~48 flats take the kernels' other paths
-    d1 = DoomEngine.from_wad_bytes(synth.doom1_scale_wad(), "e1m1",
-                                   config=cfg, device=dev)
-    check(d1.level.texq_wide, "doom1-asset-scale has no wide textures")
-    st16 = new_game(d1, 16)
-    err_paint = max(err_paint, compare_paint(
-        d1, stage_inputs(d1, st16)[2], "doom1-asset-scale B=16")[0])
-    err_items = max(err_items, check_items(d1, st16, cfg,
-                                           "doom1-asset-scale B=16"))
+    # ---- the main paths ---------------------------------------------------
+    def check_frames(self, idx, rgb, cfg, what):
+        import torch
 
-    kern_ms32 = event_ms(lambda: paint_mod.paint(e1.level, cfg, *args32), 20)
-    plain_ms32 = event_ms(
-        lambda: paint_mod.paint_reference(e1.level, cfg, *args32), 2)
-    log(f"paint at e1m1-scale B=32: kernel {kern_ms32:.4f} ms, plain "
-        f"PyTorch {plain_ms32:.2f} ms  [{card}]")
-
-    # ---- 3. the main paths at full size --------------------------------------
-    B = 4096
-    t0 = time.perf_counter()
-    state = new_game(e1, B)
-    torch.cuda.synchronize()
-    log(f"B={B} spread poses + new_game: {time.perf_counter() - t0:.2f} s")
-    sel = torch.linspace(0, B - 1, 16).long().to(dev)
-    cpu_eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
-                                        config=cfg, device="cpu")
-    cpu_state = state.map(lambda x: x[sel].cpu())
-
-    def check_frames(idx, rgb, what):
         check(idx.is_cuda and rgb.is_cuda, f"{what}: outputs not on the card")
         check(tuple(idx.shape) == (B, cfg.height, cfg.width)
               and tuple(rgb.shape) == (B, cfg.height, cfg.width),
@@ -339,7 +352,7 @@ def main() -> int:
         check(bool(((rgb >= 0) & (rgb <= 0xFFFFFF)).all()),
               f"{what}: rgb not packed RGB")
 
-    def against_cpu(idx, rgb, cpu_call, what):
+    def against_cpu(self, idx, rgb, cpu_call, cpu_state, sel, what):
         """16 cameras against the CPU port (the plain versions, which the
         CPU tests hold against the JAX package)."""
         t0 = time.perf_counter()
@@ -351,63 +364,161 @@ def main() -> int:
             f"rgb {d_rgb}")
         check(d_idx == 0 and d_rgb == 0, f"{what}: card and CPU port disagree")
 
-    # 3a. render_walls (slice 1's path)
-    paint_mod.paint.launches = 0
-    composite.launches = 0
-    widx, wrgb = e1.render_walls(state)
-    torch.cuda.synchronize()
-    walls_launches = {"paint": paint_mod.paint.launches,
-                      "items": composite.launches}
-    log(f"main path render_walls B={B}: launches {walls_launches}")
-    check(walls_launches["paint"] > 0,
-          "render_walls never launched the paint kernel")
-    check_frames(widx, wrgb, "render_walls")
-    counters = e1.render_walls_counters(state)
-    log(f"render_walls_counters: {counters}")
-    check(all(v == 0 for v in counters.values()),
-          f"render_walls capacity counters not 0: {counters}")
-    against_cpu(widx, wrgb, cpu_eng.render_walls, "render_walls")
+    def main_paths(self, eng, cpu_eng, state, cfg, label, walls_kernel):
+        """render_walls, then render, each driven once: its launches (the
+        walls kernel `walls_kernel` once and the other never, the item
+        kernel once in render only), its frames, its counters (all 0) and
+        16 cameras against the CPU port; then both timed and render
+        profiled.  Returns render's launches."""
+        import torch
 
-    # 3b. render (this slice's path: the full frame)
-    paint_mod.paint.launches = 0
-    composite.launches = 0
-    idx, rgb = e1.render(state)
-    torch.cuda.synchronize()
-    launches = {"paint": paint_mod.paint.launches,
-                "items": composite.launches}
-    log(f"main path render B={B}: launches {launches}")
-    check(launches["paint"] > 0, "render never launched the paint kernel")
-    check(launches["items"] > 0, "render never launched the item kernel")
-    check_frames(idx, rgb, "render")
-    changed = (idx != widx).float().mean().item()
-    log(f"render: share of pixels the items changed {changed:.6f}")
-    check(changed > 0.01, "the items drew almost nothing")
-    counters = e1.render_counters(state)
-    log(f"render_counters: {counters}")
-    check(all(v == 0 for v in counters.values()),
-          f"render capacity counters not 0: {counters}")
-    against_cpu(idx, rgb, cpu_eng.render, "render")
+        other = "scan" if walls_kernel == "paint" else "paint"
+        sel = torch.linspace(0, B - 1, 16).long().to(self.dev)
+        cpu_state = state.map(lambda x: x[sel].cpu())
+        frames = {}
+        for call, counters, cpu_call, items in (
+                (eng.render_walls, eng.render_walls_counters,
+                 cpu_eng.render_walls, 0),
+                (eng.render, eng.render_counters, cpu_eng.render, 1)):
+            what = f"{call.__name__} {label}"
+            idx, rgb = self.drive(eng, state, call, what,
+                                  {walls_kernel: 1, other: 0, "items": items})
+            launches = self.counts()
+            self.check_frames(idx, rgb, cfg, what)
+            got = counters(state)
+            log(f"{counters.__name__} {label}: {got}")
+            check(all(v == 0 for v in got.values()),
+                  f"{what}: capacity counters not 0: {got}")
+            self.against_cpu(idx, rgb, cpu_call, cpu_state, sel, what)
+            frames[call.__name__] = idx
+        changed = (frames["render"] != frames["render_walls"]).float().mean()
+        log(f"render {label}: share of pixels the items changed "
+            f"{changed.item():.6f}")
+        check(changed.item() > 0.01, f"{label}: the items drew almost nothing")
+        del frames, idx, rgb
 
-    # ---- 4. timing: warm once, 5 timed calls, synchronize, host checksum ---
-    def time_path(call, what):
+        # timing: warm once, timed calls, synchronize, host checksum
+        self.time_path(eng.render_walls, state, f"render_walls {label}")
+        render_ms = self.time_path(eng.render, state, f"render {label}")
+        profile_render(eng.render, state, self.card, render_ms)
+        return launches
+
+    def drive(self, eng, state, call, what, want):
+        """One main-path call with the launch counts set to 0 just before
+        it and read just after; `want` maps each kernel to the launches
+        the path must make."""
+        import torch
+
+        self.zero_counts()
+        out = call(state)
+        torch.cuda.synchronize()
+        got = self.counts()
+        log(f"main path {what} B={B}: launches {got}")
+        for k, n in want.items():
+            check(got[k] == n, f"{what}: {got[k]} {k} launches, want {n}")
+        return out
+
+    def time_path(self, call, state, what, reps=5):
+        import torch
+
         out = call(state)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(reps):
             out = call(state)
         torch.cuda.synchronize()
         checksum = int(out[1].sum().item())
-        dt = (time.perf_counter() - t0) / 5
+        dt = (time.perf_counter() - t0) / reps
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"{what} e1m1-scale 320x200 B={B}: {dt * 1e3:.3f} ms/batch, "
+        log(f"{what} 320x200 B={B}: {dt * 1e3:.3f} ms/batch, "
             f"{B / dt:.1f} frames/s, peak {peak:.2f} GiB, checksum "
-            f"{checksum}  [{card}]")
+            f"{checksum}  [{self.card}]")
         return dt * 1e3
 
-    time_path(e1.render_walls, "render_walls")
-    render_ms = time_path(e1.render, "render")
-    profile_render(e1.render, state, card, log, render_ms)
+    def timed_items(self, eng, cfg, ipool, icnt, bg, clip):
+        """K2's mean device ms over 5 calls on fresh frame copies."""
+        import torch
+
+        ms = []
+        for _ in range(6):
+            fresh = [x.clone() for x in bg]
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            self.composite(eng.level, cfg, ipool, icnt, *fresh, clip=clip)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sum(ms[1:]) / 5
+
+    def items_bound(self, eng, cfg, ipool, icnt, bg, clip):
+        """K2: the pool words of the occupied slots, the clip records of
+        the columns that hold a sprite, the counts and the atlas read
+        once; idx / ld / rgb written once where the items changed them.
+        Operations: 3 per (slot, row) of the fold (divide, multiply,
+        add), ~8 per clip test of a sprite slot, ~8 per shaded pixel."""
+        import torch
+
+        lvl, items = eng.level, self.items
+        nb = lambda t: t.numel() * t.element_size()
+        occupied = (torch.arange(cfg.item_capacity, device=self.dev)
+                    [None, :, None] < icnt[:, None, :])
+        spr = occupied & ((ipool[0] & items.SPR_MARK) != 0)
+        n_slots, n_spr = int(occupied.sum()), int(spr.sum())
+        spr_cols = spr.any(1)
+        ccnt = torch.clamp(clip["cnt"], max=clip["span"].shape[1])
+        clip_recs = int(ccnt[spr_cols].sum())
+        clip_tests = int((spr.sum(1) * ccnt).sum())
+        words = items.clipped_words(ipool, clip, cfg.height)
+        ct = torch.clamp(((words >> 16) & 0x1FF) - 1, min=0)
+        cb = torch.clamp(((words << 16) >> 16) - 1, max=cfg.height - 1)
+        fold_rows = int(torch.where(occupied, torch.clamp(cb - ct + 1, min=0),
+                                    0).sum())
+        got = self.composite(lvl, cfg, ipool, icnt, *[x.clone() for x in bg],
+                             clip=clip)
+        touched = int(((got[0] != bg[0]) | (got[1] != bg[1])
+                       | (got[2] != bg[2])).sum())
+        i_in = (n_slots * 6 * 4 + n_spr * 2 * 4 + clip_recs * 6 * 4
+                + nb(icnt) + int(spr_cols.sum()) * 4 + nb(lvl.atlas_cm)
+                + nb(lvl.palette_packed))
+        i_out = touched * 3 * 4
+        i_ops = 3.0 * fold_rows + 8.0 * clip_tests + 8.0 * touched
+        ms, by = bound(i_in + i_out, i_ops)
+        log(f"bound items: {i_in + i_out} bytes ({n_slots} occupied slots, "
+            f"{clip_recs} clip records, {touched} pixels written), "
+            f"~{i_ops:.4g} operations ({fold_rows} fold rows, {clip_tests} "
+            f"clip tests) -> {ms:.4f} ms ({by})")
+        return ms, by
+
+
+def paint_cell(s: Smoke) -> dict:
+    """e1m1-scale, paint-eligible: render_walls and render through K1
+    and K2 (the walls-only and full-frame paths of the first slices)."""
+    import torch
+
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.render import camera as cam
+    from doomtpu_torch.render import things
+    from doomtpu_torch.render.camsort import sort_state, unsort_out
+    from doomtpu_torch.wad import synth
+
+    phase("e1m1-scale: the paint path")
+    # spread poses need deeper pools than the defaults (mid 8 / clip 24 /
+    # item 8): this script's own config, the library defaults stay as
+    # they are.  Item capacity 24 is the TPU bench's calibrated value.
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=64, item_capacity=24)
+    log(f"config: {cfg.width}x{cfg.height} mid_capacity={cfg.mid_capacity} "
+        f"clip_capacity={cfg.clip_capacity} item_capacity={cfg.item_capacity} "
+        f"render_chunk={cfg.render_chunk} camera_sort={cfg.camera_sort}")
+    e1 = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1", config=cfg,
+                                   device=s.dev)
+    check(e1.level.paint_ok, "e1m1-scale is not paint-eligible")
+    state = s.new_game(e1, B)
+    cpu_eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                        config=cfg, device="cpu")
+    launches = s.main_paths(e1, cpu_eng, state, cfg, "e1m1-scale", "paint")
 
     # where the time goes: each stage alone on the Morton-sorted batch
     sp, _ = sort_state(state)
@@ -418,20 +529,20 @@ def main() -> int:
         cam.build_seg_frame(lvl, cfg, px, py, sp.angle, sp.floor_height,
                             sp.sector_light, sp.timestamp),
         cam.seg_order(lvl, cam.traversal_rank(lvl, px, py))), 3)
-    frame, order, args_full = stage_inputs(e1, sp)
-    stage["paint input build"] = event_ms(lambda: paint_mod.build_inputs(
+    frame, order, args_full = s.stage_inputs(e1, sp)
+    stage["paint input build"] = event_ms(lambda: s.paint.build_inputs(
         lvl, cfg, frame, order, sp.angle, px, py, sp.floor_height), 3)
     stage["paint kernel"] = event_ms(
-        lambda: paint_mod.paint(lvl, cfg, *args_full), 5)
-    out = paint_mod.paint(lvl, cfg, *args_full)
+        lambda: s.paint.paint(lvl, cfg, *args_full), 5)
+    out = s.paint.paint(lvl, cfg, *args_full)
+    pools = things.pools_from_paint(out)
     stage["deferred pass (item pool)"] = event_ms(
-        lambda: item_inputs(e1, sp, frame, order, out, cfg), 3)
-    ipool, icnt, daux, clip = item_inputs(e1, sp, frame, order, out, cfg)
+        lambda: s.item_inputs(e1, sp, frame, order, pools, cfg), 3)
+    ipool, icnt, daux = s.item_inputs(e1, sp, frame, order, pools, cfg)
+    clip = pools[0]
 
     # the item pool's one pass over the batch against the same work in
     # chunks of cameras: time and the memory its temporaries take
-    pools = things.pools_from_paint(out)
-
     def pool_in_chunks(C):
         for c0 in range(0, B, C):
             cut = lambda d: {k: v[c0:c0 + C] for k, v in d.items()}
@@ -449,22 +560,13 @@ def main() -> int:
         extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         log(f"item pool in chunks of {C} cameras: {ms:.4f} ms, temporaries "
             f"{extra:.2f} GiB above the {base / 2 ** 30:.2f} GiB held  "
-            f"[{card}]")
+            f"[{s.card}]")
     bg = [out[k] for k in ("idx", "ld", "rgb")]
-    item_ms = []
-    for _ in range(6):
-        fresh = [x.clone() for x in bg]
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        composite(lvl, cfg, ipool, icnt, *fresh, clip=clip)
-        b.record()
-        torch.cuda.synchronize()
-        item_ms.append(a.elapsed_time(b))
-    stage["item kernel"] = sum(item_ms[1:]) / 5
+    stage["item kernel"] = s.timed_items(e1, cfg, ipool, icnt, bg, clip)
     stage["sort + unsort"] = event_ms(
-        lambda: unsort_out((idx, rgb), sort_state(state)[1]), 3)
-    log(f"stages at B={B} (CUDA events, ms): " + json.dumps(
-        {k: round(v, 4) for k, v in stage.items()}) + f"  [{card}]")
+        lambda: unsort_out((out["idx"], out["rgb"]), sort_state(state)[1]), 3)
+    log(f"stages e1m1-scale at B={B} (CUDA events, ms): " + json.dumps(
+        {k: round(v, 4) for k, v in stage.items()}) + f"  [{s.card}]")
     scnt = args_full[1]
     log(f"active segs per camera: mean {scnt.float().mean().item():.1f}, max "
         f"{scnt.max().item()} of {lvl.num_segs}")
@@ -476,27 +578,27 @@ def main() -> int:
           f"item_capacity {cfg.item_capacity} below the uncapped peak "
           f"{peak_items}")
 
-    # ---- 5. the kernels against their plain versions on the main path's
-    # own inputs
-    err, paint_plain_ms = compare_paint(e1, args_full,
-                                        f"e1m1-scale B={B} main-path inputs")
-    err_paint = max(err_paint, err)
-    err, items_plain_ms = compare_items(e1, cfg, ipool, icnt, bg, clip,
-                                        f"e1m1-scale B={B} main-path inputs")
-    err_items = max(err_items, err)
+    # the kernels against their plain versions on the path's own inputs
+    err_paint, paint_plain_ms = s.compare_paint(
+        e1, args_full, f"e1m1-scale B={B} main-path inputs")
+    err_items, items_plain_ms = s.compare_items(
+        e1, cfg, ipool, icnt, bg, clip, f"e1m1-scale B={B} main-path inputs")
     log(f"paint at B={B}: kernel {stage['paint kernel']:.4f} ms, plain "
-        f"PyTorch {paint_plain_ms:.2f} ms (one call)  [{card}]")
+        f"PyTorch {paint_plain_ms:.2f} ms (one call)  [{s.card}]")
     log(f"items at B={B}: kernel {stage['item kernel']:.4f} ms, plain "
-        f"PyTorch {items_plain_ms:.2f} ms (one call)  [{card}]")
+        f"PyTorch {items_plain_ms:.2f} ms (one call)  [{s.card}]")
 
-    # ---- 6. bounds: what these inputs need moved and computed ---------------
-    # paint: the rows of the active segs, the per-camera scalars and the
-    # tables read once; the frame planes and counts written whole, the
-    # pools only in their occupied slots (nothing reads past a column's
-    # count).  Operations, counted loosely from above: ~40 per (column,
-    # visited seg) and ~20 per pixel.
+    # bounds: what these inputs need moved and computed.  paint: the row
+    # words it reads of the active segs (16 of a row: all before the
+    # pieces; 9 per active piece), the per-camera scalars and the tables
+    # read once; the frame planes and counts written whole, the pools
+    # only in their occupied slots (nothing reads past a column's count).
+    # Operations, counted loosely from above: ~40 per (column, visited
+    # seg) and ~20 per pixel.
     nb = lambda t: t.numel() * t.element_size()
-    p_in = (int(scnt.sum()) * paint_mod.NR * 4 + nb(scnt) + nb(args_full[2])
+    r_bytes, n_rows, n_pieces = s.row_bytes(args_full[0], scnt,
+                                            s.layout.R_PIECE0)
+    p_in = (r_bytes + nb(scnt) + nb(args_full[2])
             + nb(args_full[3]) + sum(nb(getattr(lvl, k)) for k in (
                 "tex_pixels", "flat_pixels", "sky_pixels", "palette_packed")))
     mid_used = int(torch.clamp(out["cnt_mid"], max=cfg.mid_capacity).sum())
@@ -508,64 +610,361 @@ def main() -> int:
     p_ops = (40.0 * float(scnt.sum()) * cfg.width
              + 20.0 * B * cfg.height * cfg.width)
     paint_bound, paint_by = bound(p_in + p_out, p_ops)
-    # items: the pool words of the occupied slots, the clip records of
-    # the columns that hold a sprite, the counts and the atlas read once;
-    # idx / ld / rgb written once where the items changed them.
-    # Operations: 3 per (slot, row) of the fold (divide, multiply, add),
-    # ~8 per clip test of a sprite slot, ~8 per shaded pixel.
-    occupied = torch.arange(cfg.item_capacity, device=dev)[None, :, None] \
-        < icnt[:, None, :]
-    spr = occupied & ((ipool[0] & items_mod.SPR_MARK) != 0)
-    n_slots, n_spr = int(occupied.sum()), int(spr.sum())
-    spr_cols = spr.any(1)
-    ccnt = clip["cnt"]
-    clip_recs = int(ccnt[spr_cols].sum())
-    clip_tests = int((spr.sum(1) * ccnt).sum())
-    words = items_mod.clipped_words(ipool, clip, cfg.height)
-    ct = torch.clamp(((words >> 16) & 0x1FF) - 1, min=0)
-    cb = torch.clamp(((words << 16) >> 16) - 1, max=cfg.height - 1)
-    fold_rows = int(torch.where(occupied, torch.clamp(cb - ct + 1, min=0),
-                                0).sum())
-    got = composite(lvl, cfg, ipool, icnt, *[x.clone() for x in bg], clip=clip)
-    touched = int(((got[0] != bg[0]) | (got[1] != bg[1])
-                   | (got[2] != bg[2])).sum())
-    i_in = (n_slots * 6 * 4 + n_spr * 2 * 4 + clip_recs * 6 * 4
-            + nb(icnt) + int(spr_cols.sum()) * 4 + nb(lvl.atlas_cm)
-            + nb(lvl.palette_packed))
-    i_out = touched * 3 * 4
-    i_ops = 3.0 * fold_rows + 8.0 * clip_tests + 8.0 * touched
-    items_bound, items_by = bound(i_in + i_out, i_ops)
-    log(f"bound paint: {p_in + p_out} bytes ({mid_used} mid and "
+    log(f"bound paint: {p_in + p_out} bytes ({n_rows} active rows with "
+        f"{n_pieces} active pieces: {r_bytes} row bytes; {mid_used} mid and "
         f"{clip_used} clip pool slots used), ~{p_ops:.4g} operations -> "
         f"{paint_bound:.4f} ms ({paint_by})")
-    log(f"bound items: {i_in + i_out} bytes ({n_slots} occupied slots, "
-        f"{clip_recs} clip records, {touched} pixels written), "
-        f"~{i_ops:.4g} operations ({fold_rows} fold rows, {clip_tests} clip "
-        f"tests) -> {items_bound:.4f} ms ({items_by})")
+    items_bound, items_by = s.items_bound(e1, cfg, ipool, icnt, bg, clip)
+    return {
+        "paint": {"launches": launches["paint"], "max_abs_err": err_paint,
+                  "ms": stage["paint kernel"], "plain_ms": paint_plain_ms,
+                  "bound_ms": paint_bound, "bound_by": paint_by},
+        "items": {"launches": launches["items"], "max_abs_err": err_items,
+                  "ms": stage["item kernel"], "plain_ms": items_plain_ms,
+                  "bound_ms": items_bound, "bound_by": items_by},
+    }
+
+
+def scan_cell(s: Smoke) -> dict:
+    """e1m1-scale-masked, not paint-eligible: render_walls and render
+    through K4, the resolve and the shade (and K2 for render)."""
+    import warnings
+
+    import torch
+
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.render import resolve as res
+    from doomtpu_torch.render import things, walls
+    from doomtpu_torch.render.camsort import sort_state
+    from doomtpu_torch.render.frame import pack_ld
+    from doomtpu_torch.wad import synth
+
+    phase("e1m1-scale-masked: the scan + resolve pipeline")
+    wad = synth.e1m1_scale_masked_wad()
+    cfg = RenderConfig(width=320, height=200, span_capacity=256,
+                       mid_capacity=40, clip_capacity=64, item_capacity=24)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # GRATE on solid walls
+        eng = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=s.dev)
+        cpu_eng = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg,
+                                            device="cpu")
+    lvl = eng.level
+    check(not lvl.paint_ok and not lvl.wall_tex_all_opaque,
+          "e1m1-scale-masked is paint-eligible")
+    log(f"level: {lvl.num_segs} segs, {lvl.num_mobjs} map objects, "
+        f"atlas_rows {lvl.atlas_rows}, paint_ok {lvl.paint_ok}")
+    state = s.new_game(eng, B)
+
+    # span_capacity: the uncapped peak of this cell, rounded up to 8
+    frame, order = s.frame_order(eng, state)
+    _, cnt, ovf = walls.wall_scan(lvl, cfg, frame, order)
+    peak = int(cnt.max())
+    check(int(ovf.sum()) == 0 and peak < cfg.span_capacity,
+          f"span pool of {cfg.span_capacity} overflowed measuring the peak")
+    cfg = dataclasses.replace(cfg, span_capacity=-(-peak // 8) * 8)
+    log(f"span records per column: uncapped peak {peak}, mean "
+        f"{cnt.float().mean().item():.2f}; span_capacity "
+        f"{cfg.span_capacity}")
+    eng = dataclasses.replace(eng, config=cfg)
+    cpu_eng = dataclasses.replace(cpu_eng, config=cfg)
+    del frame, order, cnt, ovf
+    launches = s.main_paths(eng, cpu_eng, state, cfg, "e1m1-scale-masked",
+                            "scan")
+
+    # where the time goes: each stage alone on the Morton-sorted batch
+    sp, _ = sort_state(state)
+    px, py = sp.pos[:, 0], sp.pos[:, 1]
+    stage = {}
+    stage["camera stage + order"] = event_ms(
+        lambda: s.frame_order(eng, sp), 3)
+    frame, order = s.frame_order(eng, sp)
+    stage["input build (rows)"] = event_ms(
+        lambda: s.paint.build_rows(lvl, frame, order), 3)
+    rows, scnt = s.paint.build_rows(lvl, frame, order)
+    stage["wall-scan kernel"] = event_ms(
+        lambda: s.scan.scan(lvl, cfg, rows, scnt), 5)
+    pool, cnt, _ = walls.wall_scan(lvl, cfg, frame, order)
+    resolve = lambda: res.resolve_frame(lvl, cfg, frame, pool, cnt, px, py,
+                                        sp.angle, sp.floor_height)
+    stage["resolve"] = event_ms(resolve, 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ridx, light, dist, is_sky = resolve()
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"resolve temporaries: {extra:.2f} GiB above the "
+        f"{base / 2 ** 30:.2f} GiB held")
+    stage["shade"] = event_ms(
+        lambda: res.shade(lvl, ridx, light, dist, is_sky), 3)
+    rgb0 = res.shade(lvl, ridx, light, dist, is_sky)
+    ld = pack_ld(ridx, light, dist, is_sky)
+    del light, dist, is_sky
+    unified = lambda: things.pools_from_unified(pool, cnt, frame)
+    stage["deferred pass (unified pools + item pool)"] = event_ms(
+        lambda: s.item_inputs(eng, sp, frame, order, unified(), cfg), 3)
+    pools = unified()
+    ipool, icnt, daux = s.item_inputs(eng, sp, frame, order, pools, cfg)
+    bg = [ridx, ld, rgb0]
+    stage["item kernel"] = s.timed_items(eng, cfg, ipool, icnt, bg, pools[0])
+    log(f"stages e1m1-scale-masked at B={B} (CUDA events, ms): "
+        + json.dumps({k: round(v, 4) for k, v in stage.items()})
+        + f"  [{s.card}]")
+    log(f"active segs per camera: mean {scnt.float().mean().item():.1f}, max "
+        f"{scnt.max().item()} of {lvl.num_segs}")
+    check(int(daux["item_peak"].max()) <= cfg.item_capacity,
+          "item_capacity below the uncapped peak")
+
+    err_scan, scan_plain_ms = s.compare_scan(
+        eng, cfg, rows, scnt, f"e1m1-scale-masked B={B} main-path inputs")
+    err_items, items_plain_ms = s.compare_items(
+        eng, cfg, ipool, icnt, bg, pools[0],
+        f"e1m1-scale-masked B={B} main-path inputs")
+    log(f"scan at B={B}: kernel {stage['wall-scan kernel']:.4f} ms, plain "
+        f"PyTorch {scan_plain_ms:.2f} ms (one call)  [{s.card}]")
+    log(f"items at B={B} masked: kernel {stage['item kernel']:.4f} ms, plain "
+        f"PyTorch {items_plain_ms:.2f} ms (one call)  [{s.card}]")
+
+    # K4's bound: the row words it reads of the active segs once (14 of
+    # a row: seg id, flags, x range, lsx / lex, length, offsets, light,
+    # flats, plane heights; 9 per active piece), the counts, the
+    # overflow and the occupied slots' 7 words written once (nothing
+    # reads a slot past its column's count).  Operations, loosely from
+    # above: ~40 per (column, active seg).
+    nb = lambda t: t.numel() * t.element_size()
+    used = int(cnt.sum())
+    r_bytes, n_rows, n_pieces = s.row_bytes(rows, scnt, 14)
+    k_in = r_bytes + nb(scnt)
+    k_out = nb(cnt) + B * 4 + used * s.scan.POOL_PLANES * 4
+    k_ops = 40.0 * float(scnt.sum()) * cfg.width
+    scan_bound, scan_by = bound(k_in + k_out, k_ops)
+    log(f"bound scan: {k_in + k_out} bytes ({n_rows} active rows with "
+        f"{n_pieces} active pieces: {r_bytes} row bytes; {used} occupied "
+        f"slots), ~{k_ops:.4g} operations -> {scan_bound:.4f} ms "
+        f"({scan_by})")
+    s.items_bound(eng, cfg, ipool, icnt, bg, pools[0])
+    return {
+        "scan": {"launches": launches["scan"], "max_abs_err": err_scan,
+                 "ms": stage["wall-scan kernel"], "plain_ms": scan_plain_ms,
+                 "bound_ms": scan_bound, "bound_by": scan_by},
+        "items_err": err_items,
+    }
+
+
+def card_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def time_paint_cell(root: str, reps: int = 10) -> int:
+    """--time-paint-cell ROOT: the e1m1-scale cell's `render_walls` and
+    `render` at B=4096 through the port in the checkout ROOT (this tree
+    or another commit's), each warmed once and then timed as the main
+    run times them over `reps` calls; prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.ops import build
+    from doomtpu_torch.wad import synth
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    import doomtpu_torch
+
+    check(os.path.dirname(os.path.dirname(doomtpu_torch.__file__))
+          == os.path.abspath(root), f"doomtpu_torch not imported from {root}")
+    build.build_libraries("paint", "items")
+    dev = torch.device("cuda", 0)
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=64, item_capacity=24)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=dev)
+    pos, ang = spread_poses(eng.tables, B)
+    state = eng.new_game(B, pos=pos, angle=ang,
+                         generator=torch.Generator(dev).manual_seed(0))
+    got = {"root": root}
+    for call in (eng.render_walls, eng.render):
+        out = call(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = call(state)
+        torch.cuda.synchronize()
+        checksum = int(out[1].sum().item())
+        got[call.__name__] = {
+            "ms": (time.perf_counter() - t0) / reps * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "checksum": checksum}
+    print(json.dumps(got), flush=True)
+    return 0
+
+
+def compare_trees(roots: list[str], rounds: int = 2) -> int:
+    """--ab ROOT_A ROOT_B: the paint cell timed through two checkouts on
+    one card, in the order A B B A per round, each timing in a process
+    of its own (--time-paint-cell); prints every timing, then per tree
+    the mean, min and max ms per batch.  The checksums must agree."""
+    check(len(roots) == 2, "--ab takes two checkout roots")
+    a, b = roots
+    card = card_line()
+    log(card)
+    runs = {a: [], b: []}
+    for _ in range(rounds):
+        for root in (a, b, b, a):
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--time-paint-cell", root],
+                capture_output=True, text=True, timeout=600)
+            check(p.returncode == 0,
+                  f"timing {root} failed:\n{p.stdout}\n{p.stderr[-4000:]}")
+            got = json.loads(p.stdout.strip().splitlines()[-1])
+            log(f"{json.dumps(got)}  ({time.perf_counter() - t0:.1f} s)")
+            runs[root].append(got)
+    for path in ("render_walls", "render"):
+        sums = {r[path]["checksum"] for rs in runs.values() for r in rs}
+        check(len(sums) == 1, f"{path}: checksums differ between trees "
+              f"{sorted(sums)}")
+        for root, rs in runs.items():
+            ms = [r[path]["ms"] for r in rs]
+            log(f"{path} e1m1-scale 320x200 B={B} under {root}: mean "
+                f"{sum(ms) / len(ms):.3f} ms/batch, min {min(ms):.3f}, max "
+                f"{max(ms):.3f} over {len(ms)} processes, peak "
+                f"{max(r[path]['peak_gib'] for r in rs):.2f} GiB  [{card}]")
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this script only runs on "
+              "the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.ops import build
+    from doomtpu_torch.wad import synth
+
+    # ---- 1. device and build ---------------------------------------------
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    log(f"nvcc: {build.nvcc_path() or 'not found'}")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    libs = ("paint", "items", "scan")
+    t0 = time.perf_counter()
+    build.build_libraries(*libs)
+    for name in libs:
+        build.load_library(name)
+        log(f"build: {name}.cu (nvcc ended "
+            f"{build.build_seconds.get(name, 0.0):.2f} s after the builds "
+            f"started)")
+        for line in build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
+    log(f"build, {len(libs)} kernels in parallel: "
+        f"{time.perf_counter() - t0:.2f} s")
+    s = Smoke(card, dev)
+
+    # ---- 2. each kernel against its plain version ---------------------------
+    phase("kernel checks")
+    demo = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", device=dev)
+    views = [(384.0, 256.0, 0.0), (900.0, 256.0, 2.5), (300.0, 700.0, 4.6),
+             (384.0, 256.0, 3.1)] * 2
+    demo_poses = (np.asarray([v[:2] for v in views], np.float32),
+                  np.asarray([v[2] for v in views], np.float32))
+    demo_st = s.new_game(demo, 8, demo_poses)
+    err = {"paint": s.compare_paint(demo, s.stage_inputs(demo, demo_st)[2],
+                                    "demo B=8")[0]}
+    err["items"] = max(s.check_items(
+        demo, demo_st, RenderConfig(item_capacity=ki),
+        f"demo B=8 item_capacity={ki}") for ki in (8, 24))
+    err["scan"] = max(s.check_scan(
+        demo, demo_st, RenderConfig(span_capacity=k),
+        f"demo B=8 span_capacity={k}") for k in (16, 4))
+
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=64, item_capacity=24)
+    e1 = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1", config=cfg,
+                                   device=dev)
+    st32 = s.new_game(e1, 32)
+    args32 = s.stage_inputs(e1, st32)[2]
+    err["paint"] = max(err["paint"],
+                       s.compare_paint(e1, args32, "e1m1-scale B=32")[0])
+    err["items"] = max(err["items"],
+                       s.check_items(e1, st32, cfg, "e1m1-scale B=32"))
+    # the scan on a paint-eligible level (the pipeline forced) and on the
+    # masked one
+    err["scan"] = max(err["scan"], s.check_scan(
+        e1, st32, dataclasses.replace(cfg, span_capacity=96),
+        "e1m1-scale B=32 (paint-eligible, scan forced)"))
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        masked = DoomEngine.from_wad_bytes(
+            synth.e1m1_scale_masked_wad(), "e1m1", config=cfg, device=dev)
+    err["scan"] = max(err["scan"], s.check_scan(
+        masked, s.new_game(masked, 32),
+        dataclasses.replace(cfg, span_capacity=96), "e1m1-scale-masked B=32"))
+    # textures wider than 128 and ~48 flats take the kernels' other paths
+    d1 = DoomEngine.from_wad_bytes(synth.doom1_scale_wad(), "e1m1",
+                                   config=cfg, device=dev)
+    check(d1.level.texq_wide, "doom1-asset-scale has no wide textures")
+    st16 = s.new_game(d1, 16)
+    err["paint"] = max(err["paint"], s.compare_paint(
+        d1, s.stage_inputs(d1, st16)[2], "doom1-asset-scale B=16")[0])
+    err["items"] = max(err["items"], s.check_items(d1, st16, cfg,
+                                                   "doom1-asset-scale B=16"))
+    kern_ms32 = event_ms(lambda: s.paint.paint(e1.level, cfg, *args32), 20)
+    plain_ms32 = event_ms(
+        lambda: s.paint.paint_reference(e1.level, cfg, *args32), 2)
+    log(f"paint at e1m1-scale B=32: kernel {kern_ms32:.4f} ms, plain "
+        f"PyTorch {plain_ms32:.2f} ms  [{card}]")
+    del demo, e1, masked, d1, args32
+
+    # ---- 3. the main paths at full size, timed ----------------------------
+    r_paint = paint_cell(s)
+    torch.cuda.empty_cache()
+    r_scan = scan_cell(s)
+    phase("done")
 
     check(not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                   for m in sys.modules), "jax was imported")
     check(not any(m == "doomtpu" or m.startswith("doomtpu.")
                   for m in sys.modules), "the JAX package doomtpu was imported")
+    row = lambda name, source, replaces, r, e: dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=r["launches"], max_abs_err=e, ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None)
     log(json.dumps({"kernels": [
-        {
-            "name": "paint", "route": "cuda",
-            "source": "doomtpu_torch/ops/csrc/paint.cu",
-            "replaces": "doomtpu/ops/pallas_paint.py:326",
-            "launches": launches["paint"], "max_abs_err": err_paint,
-            "ms": stage["paint kernel"], "plain_ms": paint_plain_ms,
-            "bound_ms": paint_bound, "bound_by": paint_by,
-            "library_ms": None,
-        },
-        {
-            "name": "items", "route": "cuda",
-            "source": "doomtpu_torch/ops/csrc/items.cu",
-            "replaces": "doomtpu/ops/pallas_items.py:245",
-            "launches": launches["items"], "max_abs_err": err_items,
-            "ms": stage["item kernel"], "plain_ms": items_plain_ms,
-            "bound_ms": items_bound, "bound_by": items_by,
-            "library_ms": None,
-        },
+        row("paint", "doomtpu_torch/ops/csrc/paint.cu",
+            "doomtpu/ops/pallas_paint.py:326", r_paint["paint"],
+            max(err["paint"], r_paint["paint"]["max_abs_err"])),
+        row("items", "doomtpu_torch/ops/csrc/items.cu",
+            "doomtpu/ops/pallas_items.py:245", r_paint["items"],
+            max(err["items"], r_paint["items"]["max_abs_err"],
+                r_scan["items_err"])),
+        row("scan", "doomtpu_torch/ops/csrc/scan.cu",
+            "doomtpu/ops/pallas_scan.py:46", r_scan["scan"],
+            max(err["scan"], r_scan["scan"]["max_abs_err"])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -575,4 +974,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-paint-cell"]:
+        sys.exit(time_paint_cell(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab"]:
+        sys.exit(compare_trees(sys.argv[2:]))
     sys.exit(main())

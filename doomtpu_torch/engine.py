@@ -7,8 +7,10 @@
 Counterpart of doomtpu/engine.py.  The engine runs on the CUDA card
 unless the caller passes device="cpu" (where the kernels' plain PyTorch
 versions run).  This package renders full frames (walls, planes, sky,
-sprites, masked mids); the simulation and calibration come with later
-slices and raise NotImplementedError until then.
+sprites, masked mids) of every level: through the paint kernel where
+the level and screen allow it, else through the wall-scan kernel and
+the resolve (render/frame.py).  The simulation and calibration come
+with later slices and raise NotImplementedError until then.
 """
 
 from __future__ import annotations
@@ -96,29 +98,31 @@ class DoomEngine:
         return out, aux
 
     def render(self, state: GameState):
-        """Full frame -> (idx [B,H,W] with -1 = unwritten, rgb packed
-        0xRRGGBB [B,H,W])."""
+        """Full frame of any level -> (idx [B,H,W] with -1 = unwritten,
+        rgb packed 0xRRGGBB [B,H,W])."""
         return self._render(state, items=True)[0]
 
     def render_counters(self, state: GameState) -> dict:
-        """Summed capacity counters of a full render: {overflow,
-        live_dropped, items_dropped, item_overflow, item_block_dropped,
-        live_stale}.  All 0 proves the configured capacities (mid / clip
-        / item pools, max_visible_mobjs) dropped nothing: the frame is
-        exact."""
+        """Summed capacity counters of a full render of any level:
+        {overflow, live_dropped, items_dropped, item_overflow,
+        item_block_dropped, live_stale}.  All 0 proves the configured
+        capacities (mid / clip pools on the paint path, the span pool on
+        the scan path, the item pool, max_visible_mobjs) dropped
+        nothing: the frame is exact."""
         _, aux = self._render(state, items=True)
         return {k: int(aux[k].sum()) for k in (
             "overflow", "live_dropped", "items_dropped", "item_overflow",
             "item_block_dropped", "live_stale")}
 
     def render_walls(self, state: GameState):
-        """Walls/planes/sky only (no things) -> (idx, rgb)."""
+        """Walls/planes/sky only (no things) of any level -> (idx, rgb)."""
         return self._render(state, items=False)[0]
 
     def render_walls_counters(self, state: GameState) -> dict:
-        """Summed capacity counters of a walls/planes render:
-        {overflow, live_dropped}.  All 0 proves the mid/clip pools
-        dropped nothing."""
+        """Summed capacity counters of a walls/planes render of any
+        level: {overflow, live_dropped}.  All 0 proves the mid / clip
+        pools (paint path) or the span pool (scan path) dropped
+        nothing."""
         _, aux = self._render(state, items=False)
         return {k: int(aux[k].sum()) for k in ("overflow", "live_dropped")}
 

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface.  At first use it is
-compiled by nvcc into `build/doomtpu_torch/` at the root of the checkout
-(a directory .gitignore lists) and loaded with ctypes; the library's
-file name carries a hash of the source and flags, so an edited source is
-rebuilt.  There is no fallback: a missing nvcc, a card other than
-Hopper or a failed build raises.
+Each `csrc/<name>.cu` has a plain C interface and includes the shared
+`csrc/layout.cuh`.  At first use it is compiled by nvcc into
+`build/doomtpu_torch/` at the root of the checkout (a directory
+.gitignore lists) and loaded with ctypes; the library's file name
+carries a hash of the source, the headers and the flags, so an edited
+source or header is rebuilt.  A library that reads seg rows reports its
+row width, which must equal ops/layout.py's NR.  There is no fallback:
+a missing nvcc, a card other than Hopper, a failed build or a row width
+that disagrees raises.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from doomtpu_torch.ops.layout import NR
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "doomtpu_torch"
@@ -49,6 +54,7 @@ _SIGNATURES = {
             _I,
         ),
         "doom_cuda_error_string": ([_I], _C.c_char_p),
+        "doom_row_words": ([], _I),
     },
     "items": {
         "doom_items": (
@@ -62,6 +68,15 @@ _SIGNATURES = {
             _I,
         ),
         "doom_items_error_string": ([_I], _C.c_char_p),
+    },
+    "scan": {
+        "doom_scan": (
+            [_P, _P, _I, _I, _I, _I, _I, _I, _I]  # rows scnt B G W H K TW pow2
+            + [_P, _P, _P, _P],                 # pool cnt ovf stream
+            _I,
+        ),
+        "doom_scan_error_string": ([_I], _C.c_char_p),
+        "doom_row_words": ([], _I),
     },
 }
 
@@ -99,10 +114,11 @@ def _check_device():
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -150,5 +166,10 @@ def load_library(name: str) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = restype
+    if "doom_row_words" in _SIGNATURES[name] and lib.doom_row_words() != NR:
+        raise RuntimeError(
+            f"csrc/{name}.cu reads {lib.doom_row_words()}-word seg rows; "
+            f"ops/layout.py builds {NR}-word rows"
+        )
     _loaded[name] = lib
     return lib

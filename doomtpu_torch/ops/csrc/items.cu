@@ -35,8 +35,7 @@
 // light levels are in [0, 255], so the light read back from ld is the
 // slot's.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "layout.cuh"
 
 // Every row loop stays rolled (see paint.cu: nvcc 12.8 for sm_90a drew
 // one row past a span's end with these loops unrolled).
@@ -45,10 +44,6 @@
 namespace {
 
 constexpr int LD_WRITTEN = 1 << 24;
-constexpr int KIND_MID = 3;
-constexpr int SPAN_E2T = 1 << 26;
-constexpr int SPAN_E2B = 1 << 27;
-constexpr int SPAN_DC = 1 << 28;
 constexpr int SPR_MARK = 1 << 29;
 constexpr int THREADS = 128;
 
@@ -67,23 +62,7 @@ struct Params {
   int* idx; int* ld; int* rgb;           // [B, H, W], updated in place
 };
 
-__device__ __forceinline__ float fbits(int v) { return __int_as_float(v); }
-
 __device__ __forceinline__ int lo16(int v) { return (int)(short)(v & 0xFFFF); }
-
-// Rust `as i16` of an f32: truncate, saturate, NaN -> 0.
-__device__ __forceinline__ int as_i16(float x) {
-  if (x != x) return 0;
-  x = truncf(x);
-  x = fminf(fmaxf(x, -32768.0f), 32767.0f);
-  return (int)x;
-}
-
-// if t < 0 { t += size * (1 - t / size) }; t %= size (truncating ops)
-__device__ __forceinline__ int wrap_tex(int t, int size) {
-  if (t < 0) t += size * (1 - t / size);
-  return t % size;
-}
 
 // jnp.minimum / maximum: a NaN operand gives NaN
 __device__ __forceinline__ float min_nan(float a, float b) {
@@ -162,7 +141,7 @@ __global__ void __launch_bounds__(THREADS) items_kernel(Params p) {
     for (int y = y0; y <= y1; ++y) {
       const float ay = __fdiv_rn((float)(y - ty), dby);
       int tyv = as_i16(__fadd_rn(thf, __fmul_rn(ay, uy1))) + off_y;
-      tyv = wrap_tex(tyv, thb);
+      tyv = wrap_tex(tyv, thb, 0);
       int t_ix = (int)((unsigned)col_ix + (unsigned)tyv);
       t_ix = min(max(t_ix, 0), p.n_atlas - 1);
       const int packed = p.atlas[t_ix];

@@ -1,0 +1,71 @@
+// Word layouts and device helpers shared by the kernels: paint.cu,
+// scan.cu and items.cu.  Mirrors doomtpu_torch/ops/layout.py: the span
+// record of the pools and the seg row the paint and wall-scan kernels
+// read.  Those two libraries export doom_row_words() = NR, which
+// ops/build.py checks against the Python NR when it loads them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// span record: nodraw(1, sign bit) | kind(2) | dc(1) | e2b(1) | e2t(1)
+// | y0+1 (8) | y1+1 (8)
+constexpr int KIND_WALL = 0, KIND_FLOOR = 1, KIND_CEIL = 2, KIND_MID = 3;
+constexpr int SPAN_E2T = 1 << 26;
+constexpr int SPAN_E2B = 1 << 27;
+constexpr int SPAN_DC = 1 << 28;
+constexpr int SPAN_NODRAW = INT32_MIN;
+
+// seg row (i32 words; f32 fields as their bits)
+constexpr int R_G = 0, R_X0 = 1, R_X1 = 2, R_FLAGS = 3;
+constexpr int R_LSX = 4, R_LSY = 5, R_LEX = 6, R_LEY = 7;
+constexpr int R_LENGTH = 8, R_SOFF = 9, R_OFFX = 10, R_LIGHT = 11;
+constexpr int R_FLAT = 12, R_PLANEH = 14, R_PIECE0 = 16;
+constexpr int P_YBS = 0, P_YBD = 1, P_YTS = 2, P_YTD = 3, P_TH = 4;
+constexpr int P_TW = 5, P_OFFY = 6, P_TEX = 7, P_UY1 = 8, P_UY1RAW = 9;
+constexpr int P_WORDS = 10;
+constexpr int NR = R_PIECE0 + 4 * P_WORDS;
+
+__device__ __forceinline__ float fbits(int v) { return __int_as_float(v); }
+
+// Rust `as i16` on f32: trunc toward zero, saturate, NaN -> 0
+__device__ __forceinline__ int as_i16(float v) {
+  if (isnan(v)) return 0;
+  v = fminf(fmaxf(truncf(v), -32768.f), 32767.f);
+  return (int)v;
+}
+__device__ __forceinline__ int clamp_i16(int v) {
+  return min(max(v, -32768), 32767);
+}
+// i32 arithmetic that wraps like the JAX/torch versions (no C UB)
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+__device__ __forceinline__ int wadd(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+__device__ __forceinline__ int wmul(int a, int b) {
+  return (int)((unsigned)a * (unsigned)b);
+}
+__device__ __forceinline__ int shl(int a, int s) {
+  return (int)((unsigned)a << s);
+}
+__device__ __forceinline__ int pack16(int hi, int lo) {
+  return shl(hi & 0xFFFF, 16) | (lo & 0xFFFF);
+}
+__device__ __forceinline__ int pack_span(int kind, int y0, int y1) {
+  int y0c = min(max(y0, -1), 254) + 1;
+  int y1c = min(max(y1, -1), 254) + 1;
+  return shl(kind, 29) | shl(y0c, 8) | y1c;
+}
+// if t < 0 { t += size * (1 - t / size) }; t %= size   (trunc div/rem)
+__device__ __forceinline__ int wrap_tex(int t, int size, int pow2) {
+  if (pow2) return t & (size - 1);
+  if (t < 0) t = t + size * (1 - t / size);
+  return t % size;
+}
+
+}  // namespace

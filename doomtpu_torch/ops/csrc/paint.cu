@@ -3,8 +3,9 @@
 //
 // Replaces doomtpu/ops/pallas_paint.py::_kernel (the TPU kernel launched
 // by render_paint).  Computes the same outputs bit for bit; the plain
-// PyTorch version is doomtpu_torch/ops/paint.py::paint_reference, and
-// the seg row layout (R_* / P_* below) is defined there.
+// PyTorch version is doomtpu_torch/ops/paint.py::paint_reference; the
+// seg row layout and the span word are in layout.cuh (with
+// doomtpu_torch/ops/layout.py).
 //
 // Design: one block per camera, one thread per screen column.  A thread
 // walks its camera's active segs front to back, keeps the occlusion
@@ -30,8 +31,7 @@
 // XLA multiplies by the constant's f32 reciprocal, and so does this
 // kernel (inv_* parameters).  Trig arrives per camera from the host.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "layout.cuh"
 
 // Every row loop stays rolled.  Measured with nvcc 12.8 for sm_90a: the
 // unrolled form of the variable-bound paint loops ran one row past its
@@ -44,25 +44,10 @@ namespace {
 
 constexpr int LD_WRITTEN = 1 << 24;
 constexpr int LD_SKY = 1 << 25;
-constexpr int KIND_WALL = 0;
-constexpr int KIND_MID = 3;
-constexpr int SPAN_E2T = 1 << 26;
-constexpr int SPAN_E2B = 1 << 27;
-constexpr int SPAN_DC = 1 << 28;
-constexpr int SPAN_NODRAW = INT32_MIN;
 constexpr int SKY_W = 256;
 constexpr int SKY_H = 128;
 constexpr int FLAT = 64;
 
-// seg row layout (doomtpu_torch/ops/paint.py)
-constexpr int R_G = 0, R_X0 = 1, R_X1 = 2, R_FLAGS = 3;
-constexpr int R_LSX = 4, R_LSY = 5, R_LEX = 6, R_LEY = 7;
-constexpr int R_LENGTH = 8, R_SOFF = 9, R_OFFX = 10, R_LIGHT = 11;
-constexpr int R_FLAT = 12, R_PLANEH = 14, R_PIECE0 = 16;
-constexpr int P_YBS = 0, P_YBD = 1, P_YTS = 2, P_YTD = 3, P_TH = 4;
-constexpr int P_TW = 5, P_OFFY = 6, P_TEX = 7, P_UY1 = 8, P_UY1RAW = 9;
-constexpr int P_WORDS = 10;
-constexpr int NR = R_PIECE0 + 4 * P_WORDS;
 constexpr int MID_PLANES = 7, CLIP_PLANES = 7;
 
 struct Params {
@@ -75,39 +60,6 @@ struct Params {
   int* idx; int* ld; int* rgb; int* pidx; int* pld;
   int* mpool; int* cpool; int* cnt_mid; int* cnt_clip; int* ovf;
 };
-
-__device__ __forceinline__ float fbits(int v) { return __int_as_float(v); }
-
-// Rust `as i16` on f32: trunc toward zero, saturate, NaN -> 0
-__device__ __forceinline__ int as_i16(float v) {
-  if (isnan(v)) return 0;
-  v = fminf(fmaxf(truncf(v), -32768.f), 32767.f);
-  return (int)v;
-}
-__device__ __forceinline__ int clamp_i16(int v) {
-  return min(max(v, -32768), 32767);
-}
-// i32 arithmetic that wraps like the JAX/torch versions (no C UB)
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-__device__ __forceinline__ int shl(int a, int s) {
-  return (int)((unsigned)a << s);
-}
-__device__ __forceinline__ int pack16(int hi, int lo) {
-  return shl(hi & 0xFFFF, 16) | (lo & 0xFFFF);
-}
-__device__ __forceinline__ int pack_span(int kind, int y0, int y1) {
-  int y0c = min(max(y0, -1), 254) + 1;
-  int y1c = min(max(y1, -1), 254) + 1;
-  return shl(kind, 29) | shl(y0c, 8) | y1c;
-}
-// if t < 0 { t += size * (1 - t / size) }; t %= size   (trunc div/rem)
-__device__ __forceinline__ int wrap_tex(int t, int size, int pow2) {
-  if (pow2) return t & (size - 1);
-  if (t < 0) t = t + size * (1 - t / size);
-  return t % size;
-}
 
 struct Column {
   const Params& P;
@@ -409,6 +361,8 @@ int doom_paint(const int* rows, const int* scnt, const float* camf,
   paint_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
+
+int doom_row_words() { return NR; }
 
 const char* doom_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

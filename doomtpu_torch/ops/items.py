@@ -33,9 +33,8 @@ import ctypes
 import torch
 
 from doomtpu_torch.config import RenderConfig
-from doomtpu_torch.ops.paint import (
-    KIND_MID, LD_WRITTEN, SPAN_DC, SPAN_E2B, SPAN_E2T, _consts,
-)
+from doomtpu_torch.ops.layout import KIND_MID, SPAN_DC, SPAN_E2B, SPAN_E2T
+from doomtpu_torch.ops.paint import LD_WRITTEN, _consts
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, f32, fdiv, is_left_of, smul, wrap_tex,

@@ -27,11 +27,12 @@ flags bits: 0-3 piece active, 4 two_sided, 5 draw_ceiling, 6-9 draws,
 10 floor-flat-is-sky, 11 ceiling-flat-is-sky, 12 seg has a middle
 texture.
 
-Seg rows (`rows`, [B, G, NR] i32, f32 fields as their bits): row k of
-camera b is that camera's k-th ACTIVE seg in traversal order; rows at
-k >= scnt[b] are inactive segs and never read by the kernel.  One
-contiguous row per seg suits the kernel: every thread of a camera's
-block reads the same row, which is one or two cache lines.
+Seg rows (`rows`, [B, G, NR] i32, f32 fields as their bits; the word
+layout is in ops/layout.py and csrc/layout.cuh): row k of camera b is
+that camera's k-th ACTIVE seg in traversal order; rows at k >= scnt[b]
+are inactive segs and never read by the kernel.  One contiguous row per
+seg suits the kernel: every thread of a camera's block reads the same
+row, which is one or two cache lines.
 """
 
 from __future__ import annotations
@@ -50,66 +51,26 @@ from doomtpu_torch.config import (
     SKY_TEXTURE_WIDTH,
     RenderConfig,
 )
+from doomtpu_torch.ops.layout import (
+    KIND_MID, KIND_WALL, NR, P_OFFY, P_TEX, P_TH, P_TW, P_UY1, P_UY1RAW,
+    P_WORDS, P_YBD, P_YBS, P_YTD, P_YTS, R_FLAGS, R_FLAT, R_G, R_LENGTH,
+    R_LEX, R_LEY, R_LIGHT, R_LSX, R_LSY, R_OFFX, R_PIECE0, R_PLANEH, R_SOFF,
+    R_X0, R_X1, SPAN_DC, SPAN_E2B, SPAN_E2T, SPAN_NODRAW, pack16, pack_span,
+)
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, cos_sin, div_const, div_trunc, f32, fdiv, reciprocal,
     rem_trunc, smul, wrap_tex,
 )
+from doomtpu_torch.render.resolve import shade
 
 LD_WRITTEN = 1 << 24
 LD_SKY = 1 << 25
 FLAG_HAS_MID = 1 << 12
 
-# span-record packing (doomtpu/render/walls.py)
-KIND_WALL = 0
-KIND_MID = 3
-SPAN_E2T = 1 << 26
-SPAN_E2B = 1 << 27
-SPAN_DC = 1 << 28
-SPAN_NODRAW = -(2 ** 31)
-
-# seg row layout (i32 words; "f" = f32 bits).  Mirrored in csrc/paint.cu.
-R_G = 0          # seg id
-R_X0 = 1         # screen x range (through f32, as the JAX field matrix)
-R_X1 = 2
-R_FLAGS = 3
-R_LSX = 4        # f: FOV-clipped view-space endpoints (non-finite -> 0)
-R_LSY = 5
-R_LEX = 6
-R_LEY = 7
-R_LENGTH = 8     # f
-R_SOFF = 9       # f: start offset
-R_OFFX = 10      # texture x offset total
-R_LIGHT = 11
-R_FLAT = 12      # floor, ceiling flat ids (12, 13)
-R_PLANEH = 14    # floor, ceiling heights (14, 15)
-R_PIECE0 = 16    # 10 words per piece:
-P_YBS = 0        # f: bottom edge y at x0
-P_YBD = 1        # f: bottom edge slope
-P_YTS = 2        # f: top edge y at x0
-P_YTD = 3        # f: top edge slope
-P_TH = 4         # texture height
-P_TW = 5         # texture width
-P_OFFY = 6       # texture y offset total
-P_TEX = 7        # texture id (>= 0)
-P_UY1 = 8        # f: top - bottom height (non-finite -> 0), mid records
-P_UY1RAW = 9     # f: the same, as computed (wall texel v)
-P_WORDS = 10
-NR = R_PIECE0 + 4 * P_WORDS      # 56
-
 MID_PLANES = 7    # span, d1 (texel column), d2 (by|ty), d3 (offy|th),
 #                   d4 (light|zdist), d5 (uy1 bits), d6 (seg id)
 CLIP_PLANES = 7   # span, d2 (by|ty), d6 (seg id), lsx, lsy, lex, ley
-
-
-def _pack16(hi, lo):
-    return ((hi & 0xFFFF) << 16) | (lo & 0xFFFF)
-
-
-def _pack_span(kind, y0, y1):
-    y0c = torch.clamp(y0, -1, 254) + 1
-    y1c = torch.clamp(y1, -1, 254) + 1
-    return (kind << 29) | (y0c << 8) | y1c
 
 
 def _texel_columns(level: DeviceLevel) -> int:
@@ -143,11 +104,11 @@ def _consts(cfg: RenderConfig) -> dict:
 # input build (the host side of the JAX render_paint)
 # ---------------------------------------------------------------------------
 
-def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
-                 angle, px, py, floor_height):
-    """(rows [B, G, NR] i32, scnt [B] i32, camf [B, 3] f32, cami [B, 3]
-    i32) for `paint`, from a camera-stage frame and the traversal
-    order."""
+def build_rows(level: DeviceLevel, frame: dict, order):
+    """(rows [B, G, NR] i32, scnt [B] i32): one row per (camera, seg),
+    the camera's active segs first in traversal order, from a
+    camera-stage frame and the traversal order.  The paint and the wall
+    scan kernels both read them."""
     B, G = order.shape
     active, draws, tex = frame["active"], frame["draws"], frame["tex"]
     ffl, cfl = frame["floor_flat"], frame["ceil_flat"]
@@ -168,7 +129,13 @@ def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     def fin(x):
         return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
-    # ints the JAX field matrix carries as f32 go through f32 here too
+    # ints the JAX field matrix carries as f32 go through f32 here too.
+    # For x0 / x1 that is the identity, so the wall scan, which reads
+    # them as i32 (JAX walls.py), reads the same words: camera.project_x
+    # makes them Rust `as i32` of an f32 (an integer f32 holds exactly,
+    # or +-2^31 saturated) clamped to W - 1.  fin() changes nothing on an
+    # active seg: its endpoints passed the FOV clip and its x range is
+    # not empty, so every such f32 is finite
     via_f32 = lambda x: x.to(F32).to(I32)
     seg_ids = torch.arange(G, dtype=I32, device=order.device)
     base = [
@@ -195,7 +162,7 @@ def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     )                                                      # [B, G, NR]
 
     # per-camera active segs first, each group in traversal order: an
-    # inactive seg changes nothing, so the kernel stops at scnt
+    # inactive seg changes nothing, so the kernels stop at scnt
     act_o = torch.gather((flags & 15) != 0, 1, order.long())
     first = torch.argsort((~act_o).to(torch.int8), dim=1, stable=True)
     comb = torch.gather(order.long(), 1, first)
@@ -203,7 +170,15 @@ def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     rows = torch.gather(
         rows_seg, 1, comb[..., None].expand(B, G, NR)
     ).contiguous()
+    return rows, scnt
 
+
+def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
+                 angle, px, py, floor_height):
+    """(rows [B, G, NR] i32, scnt [B] i32, camf [B, 3] f32, cami [B, 3]
+    i32) for `paint`, from a camera-stage frame and the traversal
+    order."""
+    rows, scnt = build_rows(level, frame, order)
     stw = SKY_TEXTURE_WIDTH
     ang = f32(angle)
     c, s = cos_sin(ang)
@@ -516,7 +491,7 @@ def paint_reference(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
             in_ver = (cb >= ct) & open_
             th, tw = iv(pb + P_TH), iv(pb + P_TW)
             tx = wrap_tex(tx_base, torch.clamp(tw, min=1), pow2)
-            cd2 = _pack16(by, ty)
+            cd2 = pack16(by, ty)
             texid, offy = iv(pb + P_TEX), iv(pb + P_OFFY)
 
             if p == 0:
@@ -526,7 +501,7 @@ def paint_reference(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
                           - torch.clamp(co, min=0)) > 1
                 gap_b = gap & (by <= co)
                 gap_t = gap & draw_c & (ty >= fo)
-                rec = _pack_span(KIND_WALL, ct, cb) | SPAN_E2B | SPAN_E2T
+                rec = pack_span(KIND_WALL, ct, cb) | SPAN_E2B | SPAN_E2T
                 rec = torch.where(draws_p, rec, rec | SPAN_NODRAW)
                 m_e = in_ver & solid
                 m_w = m_e & draws_p
@@ -557,18 +532,18 @@ def paint_reference(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
                 fo = torch.where(solid_occl, H // 2, fo)
                 co = torch.where(solid_occl, H // 2, co)
             elif p == 1:
-                rec = _pack_span(KIND_MID, ct, cb) | (draw_c.to(I32) * SPAN_DC)
+                rec = pack_span(KIND_MID, ct, cb) | (draw_c.to(I32) * SPAN_DC)
                 cnt_c = emit(cpool, cnt_c, 1, kc_iota, KC, in_ver,
                              [rec, cd2, g] + coords)
                 md1 = texid * level.tex_pixels.shape[2] + tx
-                md3 = _pack16(offy, th).expand(B, W)
-                md4 = _pack16(light, zdist)
+                md3 = pack16(offy, th).expand(B, W)
+                md4 = pack16(light, zdist)
                 md5 = iv(pb + P_UY1).expand(B, W)
                 cnt_m = emit(mpool, cnt_m, 0, km_iota, KM, in_ver & has_mid,
                              [rec, md1, cd2, md3, md4, md5, g])
             else:
                 e2 = SPAN_E2B if p == 2 else SPAN_E2T
-                rec = _pack_span(KIND_WALL, ct, cb) | e2
+                rec = pack_span(KIND_WALL, ct, cb) | e2
                 rec = torch.where(draws_p, rec, rec | SPAN_NODRAW)
                 cnt_c = emit(cpool, cnt_c, 1, kc_iota, KC, in_ver,
                              [rec, cd2, g] + coords)
@@ -583,24 +558,12 @@ def paint_reference(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
     use_p = (pld & LD_WRITTEN) != 0
     ldw = torch.where(use_p, pld, wld)
     texel = torch.where(use_p, pidx, widx)
-    written = (ldw & LD_WRITTEN) != 0
-    is_sky = (ldw & LD_SKY) != 0
-    light = (ldw >> 16) & 0xFF
-    dist = ((ldw & 0xFFFF) << 16) >> 16
-    rgbw = level.palette_packed[(texel & 0xFF).long()]
-    factor = f32(light) * k["inv_255"] - smul(f32(dist), 1.0 / 4096.0)
-    factor = torch.maximum(factor, torch.zeros((), dtype=F32, device=dev))
-    factor = torch.where(is_sky, torch.ones((), dtype=F32, device=dev),
-                         factor)
-    packed = torch.zeros_like(texel)
-    for shift in (16, 8, 0):
-        chan = f32((rgbw >> shift) & 0xFF)
-        byte = torch.clamp(torch.trunc(chan * factor), 0.0, 255.0).to(I32)
-        packed = packed | (byte << shift)
+    idx = torch.where((ldw & LD_WRITTEN) != 0, texel, -1).to(I32)
     o = {
-        "idx": torch.where(written, texel, -1).to(I32),
+        "idx": idx,
         "ld": ldw,
-        "rgb": torch.where(written, packed, 0).to(I32),
+        "rgb": shade(level, idx, (ldw >> 16) & 0xFF,
+                     ((ldw & 0xFFFF) << 16) >> 16, (ldw & LD_SKY) != 0),
         "mpool": mpool, "cpool": cpool,
         "cnt_mid": cnt_m, "cnt_clip": cnt_c, "overflow": ovf,
     }

@@ -11,6 +11,7 @@ tables, the item kernel the unpacked column atlas `atlas_cm`.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -140,9 +141,18 @@ class DeviceLevel:
     atlas_rows: int = 0
     # columns per sprite picture in the atlas (the padded sprite width)
     spr_pw: int = 0
+    # texture id of the sky
+    sky_tex: int = 0
+    # the sky texture has no transparent texel (the resolve's one-gather
+    # fetch); else transparent sky texels show the wall drawn earlier
+    sky_is_opaque: bool = True
+    # every solid / lower / upper wall-piece texture is opaque: the
+    # resolve's winner fold is exact then (see render/resolve.py)
+    wall_tex_all_opaque: bool = True
 
     STATIC_FIELDS = ("tex_sizes_pow2", "paint_ok", "texq_wide", "atlas_rows",
-                     "spr_pw")
+                     "spr_pw", "sky_tex", "sky_is_opaque",
+                     "wall_tex_all_opaque")
 
     @classmethod
     def tensor_fields(cls) -> tuple[str, ...]:
@@ -239,10 +249,21 @@ class DeviceLevel:
             mid_np[~two_sided_np], low_np, up_np
         ]))
         wall_piece_tex = wall_piece_tex[wall_piece_tex >= 0]
-        wall_tex_all_opaque = all(
+        tex_opaque = np.array([
             bool(a.tex_mask[ti, : a.tex_h[ti], : a.tex_w[ti]].all())
             for ti in wall_piece_tex
-        )
+        ], bool)
+        wall_tex_all_opaque = bool(tex_opaque.all())
+        if not wall_tex_all_opaque:
+            bad = wall_piece_tex[~tex_opaque]
+            warnings.warn(
+                "level uses texture(s) with transparent texels on "
+                f"solid/lower/upper wall pieces (tex ids {bad.tolist()}): "
+                "pixels where multiple drawn wall spans overlap (span "
+                "boundaries) may show black instead of the earlier wall "
+                "(reference skip behavior, bitmap_render.rs:265)",
+                stacklevel=2,
+            )
         texq_wide = any(a.tex_w[ti] > 128 for ti in wall_piece_tex)
         twq = 256 if texq_wide else 128
         sky_is_opaque = bool(a.tex_mask[a.sky_tex].all())
@@ -316,6 +337,9 @@ class DeviceLevel:
             texq_wide=texq_wide,
             atlas_rows=atlas_rows,
             spr_pw=a.spr_pixels.shape[2],
+            sky_tex=int(a.sky_tex),
+            sky_is_opaque=sky_is_opaque,
+            wall_tex_all_opaque=wall_tex_all_opaque,
         )
         return level_from_numpy(arrays, device)
 

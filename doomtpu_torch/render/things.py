@@ -1,7 +1,7 @@
 """Deferred pass: map-object sprites + masked two-sided mid walls.
 
-Counterpart of doomtpu/render/things.py on the paint pipeline
-(`pools_from_paint` -> `deferred_pass` with the item kernel) at its
+Counterpart of doomtpu/render/things.py (`pools_from_paint` or
+`pools_from_unified` -> `deferred_pass` with the item kernel) at its
 shipping defaults: dense emission (no block-local path), mid presence
 per selected item and the vectorized mid fill.  The stages and their
 arithmetic are the JAX package's:
@@ -13,8 +13,8 @@ arithmetic are the JAX package's:
 3. presence [B, N, W] per selected item and column; each column's
    present items fill its item pool [B, KI, W] nearest first, so a full
    column drops its farthest items (counted in item_overflow);
-4. per-slot sprite column math, and mid slots filled from the paint
-   kernel's mid pool;
+4. per-slot sprite column math, and mid slots filled from the mid
+   pool;
 5. the item kernel (ops/items.py) clips sprite slots against the clip
    pool and folds the pool farthest -> nearest over the paint frame.
 
@@ -42,7 +42,7 @@ from doomtpu_torch.config import PLAYER_EYE_HEIGHT, RenderConfig
 from doomtpu_torch.ops.items import (
     ITEM_PLANES, SPR_MARK, composite_items, is_behind_vertex,
 )
-from doomtpu_torch.ops.paint import KIND_MID, _pack16
+from doomtpu_torch.ops.layout import KIND_MID, pack16
 from doomtpu_torch.render import camera as cam
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
@@ -84,6 +84,33 @@ def pools_from_paint(out_or_aux: dict):
         "span": m[0], "d1": m[1], "d2": m[2], "d3": m[3], "d4": m[4],
         "d5": m[5], "d6": m[6], "cnt": out_or_aux["cnt_mid"],
     }
+    return clip, mid
+
+
+def pools_from_unified(pool, cnt, frame: dict):
+    """(clip, mid) pools from the unified span pool of the scan + resolve
+    pipeline (render/walls.wall_scan: (spans, [d1..d6]) as [B, W, K]
+    views), as slot-major [B, K, W] planes.  Both views are the same
+    slots, as in the JAX pools_from_unified: plane records are inert in
+    the clip (no E2B / E2T / DC bit, not KIND_MID) and in the mid pool
+    (not KIND_MID).  The item kernel's clip reads each record's seg
+    endpoints, which the span pool does not carry: they are gathered
+    from the camera-stage frame by the record's seg id d6, as the JAX
+    XLA clip does (slots at or past cnt gather seg 0 and are never
+    read)."""
+    spans, planes = pool
+    sm = lambda p: p.transpose(1, 2)
+    s = sm(spans)
+    d1, d2, d3, d4, d5, d6 = (sm(p) for p in planes)
+    B, K, W = s.shape
+    valid = torch.arange(K, dtype=I32, device=s.device)[None, :, None] \
+        < cnt[:, None, :]
+    seg = torch.where(valid, d6, 0).reshape(B, K * W).long()
+    coord = lambda k: torch.gather(frame[k], 1, seg).reshape(B, K, W).view(I32)
+    clip = {"span": s, "d2": d2, "d6": d6, "cnt": cnt}
+    clip.update({k: coord(k) for k in ("lsx", "lsy", "lex", "ley")})
+    mid = {"span": s, "d1": d1, "d2": d2, "d3": d3, "d4": d4, "d5": d5,
+           "d6": d6, "cnt": cnt}
     return clip, mid
 
 
@@ -354,11 +381,11 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
         s_ct = torch.clamp(torch.clamp(s_ty, min=0), max=H)
         s_cb = torch.clamp(s_by, max=H - 1)
         spr_planes = [
-            _pack16(s_ct + 1, s_cb + 1) | SPR_MARK,
+            pack16(s_ct + 1, s_cb + 1) | SPR_MARK,
             level.col_spr_off + sc["pic"] * level.spr_pw + s_tx,
-            _pack16(s_by, s_ty),
-            _pack16(zero_s, sc["th"]),
-            _pack16(sc["light"], s_zd),
+            pack16(s_by, s_ty),
+            pack16(zero_s, sc["th"]),
+            pack16(sc["light"], s_zd),
             sc["uy1"].view(I32), sc["vpx"].view(I32), sc["vpy"].view(I32),
         ]
         planes = [torch.where(is_spr_slot, p, 0) for p in spr_planes]
@@ -378,7 +405,7 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
         is_mid_slot = used & ~is_spr_slot & (src >= 0)
         k_ix = torch.clamp(src, min=0).long()
         take = lambda p: torch.gather(p, 1, k_ix)
-        w_new = _pack16((m_span >> 8) & 255, m_span & 255)
+        w_new = pack16((m_span >> 8) & 255, m_span & 255)
         mid_planes = [w_new] + [midp[k] for k in ("d1", "d2", "d3", "d4", "d5")]
         for i, p in enumerate(mid_planes):
             planes[i] = torch.where(is_mid_slot, take(p), planes[i])
@@ -391,10 +418,12 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
 def deferred_pass(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
                   order, px, py, angle, floor_height, sector_light,
                   mobj_state, idx, ld, rgb):
-    """Composite sprites + masked mids over the paint frame.
+    """Composite sprites + masked mids over the frame.
 
-    `pools` is the (clip, mid) pair from pools_from_paint; idx/ld/rgb
-    [B, H, W] are the paint stage's outputs and are updated in place.
+    `pools` is the (clip, mid) pair from pools_from_paint or
+    pools_from_unified; idx/ld/rgb [B, H, W] are the shaded frame of
+    walls, planes and sky (ld packed as the paint kernel's) and are
+    updated in place.
     Returns (idx, ld, rgb, daux), daux counting items_dropped (beyond
     max_visible_mobjs) and item_overflow (item-pool column overflow)."""
     ipool, icnt, daux = item_pool(

@@ -882,6 +882,16 @@ def e1m1_scale_wad() -> bytes:
     return build_wad(*e1m1_scale_level())
 
 
+def e1m1_scale_masked_wad() -> bytes:
+    """e1m1-scale's geometry, things and light specials with GRATE
+    (transparent texels) among the one-sided wall textures (33 rooms'
+    solid walls): a level the paint kernel does not take, so it renders
+    through the scan + resolve pipeline."""
+    return build_wad(*grid_level(
+        10, 13, seed=101, things_per_room=1.2,
+        wall_texes=["WALL1", "WALL2", "STEP1", "GRATE"]))
+
+
 def doom1_scale_wad() -> bytes:
     return build_wad(*doom1_scale_level(), rich=True)
 

@@ -1,6 +1,7 @@
-"""Tests that need a CUDA card: the paint and item kernels against their
-plain PyTorch versions, and render / render_walls on the card against
-the same calls on the CPU.
+"""Tests that need a CUDA card: the paint, item and wall-scan kernels
+against their plain PyTorch versions, and render / render_walls on the
+card against the same calls on the CPU, on the paint path and on the
+scan + resolve pipeline.
 
 This file imports no JAX, so it also runs where there is a card and no
 JAX; the repo's conftest imports JAX, so leave it out there:
@@ -8,7 +9,8 @@ JAX; the repo's conftest imports JAX, so leave it out there:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Without a card every test skips.  Tolerance: exact equality on every
-output.
+output (for the wall scan's pool: every slot below a column's count;
+the kernel does not write the slots past it, which nothing reads).
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.config import RenderConfig  # noqa: E402
 from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
+from doomtpu_torch.ops import scan as ts  # noqa: E402
 from doomtpu_torch.render import camera as cam  # noqa: E402
 from doomtpu_torch.render import things  # noqa: E402
 
@@ -164,5 +167,73 @@ def test_render_on_card_equals_cpu(cuda, wad_fn):
     idx_c, rgb_c = cpu.render(_state(cpu, pos, ang))
     assert torch.equal(idx.cpu(), idx_c)
     assert torch.equal(rgb.cpu(), rgb_c)
+    counters = gpu.render_counters(_state(gpu, pos, ang))
+    assert set(counters.values()) == {0}, counters
+
+
+def _masked_engine(device, cfg):
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # GRATE on solid walls
+        return DoomEngine.from_wad_bytes(synth.e1m1_scale_masked_wad(), "e1m1",
+                                         config=cfg, device=device)
+
+
+@pytest.mark.parametrize("case", ["demo-K16", "demo-K4", "masked-K64"])
+def test_scan_kernel_equals_plain_version(cuda, case):
+    """Demo views at B=8 (K=4 overflows), e1m1-scale-masked at B=32."""
+    K = int(case.split("K")[1])
+    cfg = RenderConfig(width=320, height=200, span_capacity=K)
+    if case.startswith("demo"):
+        eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", config=cfg,
+                                        device=cuda)
+        views = VIEWS * 2
+        st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
+                    np.asarray([v[2] for v in views], np.float32))
+    else:
+        eng = _masked_engine(cuda, cfg)
+        st = _state(eng, *_spread(eng.tables, 32))
+    px, py = st.pos[:, 0], st.pos[:, 1]
+    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
+                                st.floor_height, st.sector_light,
+                                st.timestamp)
+    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    rows, scnt = tp.build_rows(eng.level, frame, order)
+    before = ts.scan.launches
+    got = ts.scan(eng.level, cfg, rows, scnt)
+    torch.cuda.synchronize()
+    assert ts.scan.launches == before + 1
+    want = ts.scan_reference(eng.level, cfg, rows, scnt)
+    assert torch.equal(got["cnt"], want["cnt"])
+    assert torch.equal(got["overflow"], want["overflow"])
+    below = (torch.arange(K, device=cuda)[None, :, None]
+             < got["cnt"][:, None, :])
+    for p in range(ts.POOL_PLANES):
+        assert torch.equal(torch.where(below, got["pool"][p], 0),
+                           torch.where(below, want["pool"][p], 0)), p
+    assert (int(got["overflow"].sum()) > 0) == (K == 4)
+
+
+def test_render_masked_on_card_equals_cpu(cuda):
+    """The scan + resolve pipeline end to end, B=8 spread poses."""
+    cfg = RenderConfig(span_capacity=64, mid_capacity=40, clip_capacity=64,
+                       item_capacity=24)
+    gpu, cpu = _masked_engine(cuda, cfg), _masked_engine("cpu", cfg)
+    assert not gpu.level.paint_ok
+    pos, ang = _spread(cpu.tables, 8)
+    before = (tp.paint.launches, ts.scan.launches,
+              ti.composite_items.launches)
+    idx, rgb = gpu.render(_state(gpu, pos, ang))
+    torch.cuda.synchronize()
+    assert (tp.paint.launches, ts.scan.launches,
+            ti.composite_items.launches) == (before[0], before[1] + 1,
+                                             before[2] + 1)
+    idx_c, rgb_c = cpu.render(_state(cpu, pos, ang))
+    assert torch.equal(idx.cpu(), idx_c)
+    assert torch.equal(rgb.cpu(), rgb_c)
+    widx, wrgb = gpu.render_walls(_state(gpu, pos, ang))
+    widx_c, wrgb_c = cpu.render_walls(_state(cpu, pos, ang))
+    assert torch.equal(widx.cpu(), widx_c) and torch.equal(wrgb.cpu(), wrgb_c)
     counters = gpu.render_counters(_state(gpu, pos, ang))
     assert set(counters.values()) == {0}, counters

@@ -47,7 +47,7 @@ def _jax_fields(jl) -> dict:
     out = {n: (getattr(jl, n) if n in DeviceLevel.STATIC_FIELDS
                else np.asarray(getattr(jl, n)))
            for n in names if hasattr(jl, n)}
-    out["sky_tex"] = np.asarray(jl.sky_tex)
+    out["sky_tex"] = int(np.asarray(jl.sky_tex))   # a JAX array there
     out["spr_pixels"] = np.asarray(jl.spr_pixels)
     return out
 
@@ -62,7 +62,9 @@ def test_build_equals_jax_field_by_field(levels):
             "dseg_ix", "atlas_cm"} <= set(fields)
     assert tl.spr_pw == fields["spr_pixels"].shape[2]
     assert tl.col_spr_off == jl.col_spr_off
-    del fields["sky_tex"], fields["spr_pixels"]
+    # the scan + resolve pipeline's static fields
+    assert {"sky_tex", "sky_is_opaque", "wall_tex_all_opaque"} <= set(fields)
+    del fields["spr_pixels"]
     for name, want in fields.items():
         got = getattr(tl, name)
         if name in DeviceLevel.STATIC_FIELDS:
@@ -71,7 +73,7 @@ def test_build_equals_jax_field_by_field(levels):
         got = got.numpy()
         assert got.shape == want.shape, name
         np.testing.assert_array_equal(got, want.astype(got.dtype), name)
-    assert tl.paint_ok
+    assert tl.paint_ok and tl.sky_is_opaque and tl.wall_tex_all_opaque
 
 
 def test_sky_table_matches_the_packed_sky(levels):
