@@ -14,7 +14,10 @@ with 4096 spread cameras at 320x200, each with the launch counts set to
   the item kernel too);
 - e1m1-scale-masked (GRATE on some solid walls, so the paint kernel
   does not take it): render_walls and render through the wall-scan
-  kernel, the resolve and the shade, then the item kernel.
+  kernel, the resolve and the shade, then the item kernel;
+- e1m1-scale with use_item_pass_kernel: render through the paint kernel
+  and the item-pass kernel, which draws every selected item (no item
+  pool, no item cap).
 
 It checks their output against the CPU port on 16 cameras, then times
 them.  Any failed phase raises, so the script exits non-zero before its
@@ -100,6 +103,32 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
                                        else "operations")
 
 
+def against_plain(kernel_call, plain_call):
+    """(kernel outputs, plain outputs, plain ms): the kernel's call, then
+    its plain version's, timed with CUDA events."""
+    import torch
+
+    got = kernel_call()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    ref = plain_call()
+    b.record()
+    torch.cuda.synchronize()
+    return got, ref, a.elapsed_time(b)
+
+
+def differing(pairs: dict) -> tuple[int, dict]:
+    """(worst absolute difference, differing elements per output) of
+    named (kernel, plain) output pairs."""
+    worst, diffs = 0, {}
+    for k, (g, r) in pairs.items():
+        diffs[k] = (g != r).sum().item()
+        if diffs[k]:
+            worst = max(worst, (g.long() - r.long()).abs().max().item())
+    return worst, diffs
+
+
 def event_ms(fn, n):
     """Mean device ms of n calls after a warm one (CUDA events)."""
     import torch
@@ -160,14 +189,16 @@ class Smoke:
     """Device, modules and the checks shared by the cells."""
 
     def __init__(self, card, dev):
-        from doomtpu_torch.ops import items, layout, paint, scan
+        from doomtpu_torch.ops import itempass, items, layout, paint, scan
 
         self.card, self.dev = card, dev
+        self.checksums = {}                 # timed path -> its rgb checksum
         self.paint, self.items, self.scan = paint, items, scan
+        self.itempass = itempass
         self.layout = layout
         self.composite = items.composite_items
         self.kernels = {"paint": paint.paint, "items": self.composite,
-                        "scan": scan.scan}
+                        "scan": scan.scan, "itempass": itempass.item_pass}
 
     def zero_counts(self):
         for fn in self.kernels.values():
@@ -203,59 +234,46 @@ class Smoke:
 
     # ---- each kernel against its plain version ------------------------------
     def compare_paint(self, eng, args, label):
-        import torch
-
         lvl, cfg = eng.level, eng.config
-        got = outputs_of(self.paint.paint(lvl, cfg, *args))
-        torch.cuda.synchronize()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        ref = outputs_of(self.paint.paint_reference(lvl, cfg, *args))
-        b.record()
-        torch.cuda.synchronize()
-        worst, diffs = 0, {}
-        for k in ref:
-            d = (got[k] != ref[k]).sum().item()
-            diffs[k] = d
-            if d:
-                worst = max(worst,
-                            (got[k].long() - ref[k].long()).abs().max().item())
+        got, ref, plain_ms = against_plain(
+            lambda: outputs_of(self.paint.paint(lvl, cfg, *args)),
+            lambda: outputs_of(self.paint.paint_reference(lvl, cfg, *args)))
+        worst, diffs = differing({k: (got[k], ref[k]) for k in ref})
         log(f"paint {label}: differing elements per output {json.dumps(diffs)}")
         check(all(v == 0 for v in diffs.values()),
               f"paint {label}: kernel differs from paint_reference")
         log(f"  peak pool use per column: mid {got['cnt_mid'].max().item()} "
             f"of {cfg.mid_capacity}, clip {got['cnt_clip'].max().item()} "
             f"of {cfg.clip_capacity}")
-        return worst, a.elapsed_time(b)
+        return worst, plain_ms
+
+    def compare_frames(self, what, got, ref, bg_idx, label, detail):
+        """An item kernel's (idx, ld, rgb) against its plain version's:
+        0 differing elements, and some pixel drawn.  Returns the worst
+        difference."""
+        worst, diffs = differing(dict(zip(("idx", "ld", "rgb"),
+                                          zip(got, ref))))
+        drawn = int((got[0] != bg_idx).sum())
+        log(f"{what} {label}: differing elements per output "
+            f"{json.dumps(diffs)}; pixels the items changed {drawn}; "
+            f"{detail}")
+        check(all(v == 0 for v in diffs.values()),
+              f"{what} {label}: kernel differs from its plain version")
+        check(drawn > 0, f"{what} {label}: no item drew anything")
+        return worst
 
     def compare_items(self, eng, cfg, ipool, icnt, bg, clip, label):
-        import torch
-
         lvl = eng.level
         fresh = lambda: [x.clone() for x in bg]
-        got = self.composite(lvl, cfg, ipool, icnt, *fresh(), clip=clip)
-        torch.cuda.synchronize()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ref_in = fresh()
-        a.record()
-        ref = self.items.composite_items_reference(lvl, cfg, ipool, icnt,
-                                                   *ref_in, clip=clip)
-        b.record()
-        torch.cuda.synchronize()
-        worst, diffs = 0, {}
-        for k, g, r in zip(("idx", "ld", "rgb"), got, ref):
-            d = (g != r).sum().item()
-            diffs[k] = d
-            if d:
-                worst = max(worst, (g.long() - r.long()).abs().max().item())
-        drawn = int((got[0] != bg[0]).sum())
-        log(f"items {label}: differing elements per output "
-            f"{json.dumps(diffs)}; pixels the items changed {drawn}; peak "
-            f"slots per column {int(icnt.max())} of {cfg.item_capacity}")
-        check(all(v == 0 for v in diffs.values()),
-              f"items {label}: kernel differs from composite_items_reference")
-        check(drawn > 0, f"items {label}: no item drew anything")
-        return worst, a.elapsed_time(b)
+        got, ref, plain_ms = against_plain(
+            lambda: self.composite(lvl, cfg, ipool, icnt, *fresh(), clip=clip),
+            lambda: self.items.composite_items_reference(
+                lvl, cfg, ipool, icnt, *ref_in, clip=clip))
+        worst = self.compare_frames(
+            "items", got, ref, bg[0], label, f"peak slots per column "
+            f"{int(icnt.max())} of {cfg.item_capacity}")
+        return worst, plain_ms
 
     def compare_scan(self, eng, cfg, rows, scnt, label):
         """K4 against scan_reference: cnt, overflow and every pool plane
@@ -263,13 +281,9 @@ class Smoke:
         import torch
 
         lvl = eng.level
-        got = self.scan.scan(lvl, cfg, rows, scnt)
-        torch.cuda.synchronize()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        ref = self.scan.scan_reference(lvl, cfg, rows, scnt)
-        b.record()
-        torch.cuda.synchronize()
+        got, ref, plain_ms = against_plain(
+            lambda: self.scan.scan(lvl, cfg, rows, scnt),
+            lambda: self.scan.scan_reference(lvl, cfg, rows, scnt))
         K = cfg.span_capacity
         below = (torch.arange(K, device=self.dev)[None, :, None]
                  < ref["cnt"][:, None, :])
@@ -279,19 +293,14 @@ class Smoke:
                                   "d6")):
             pairs[name] = (torch.where(below, got["pool"][i], 0),
                            torch.where(below, ref["pool"][i], 0))
-        worst, diffs = 0, {}
-        for k, (g, r) in pairs.items():
-            d = (g != r).sum().item()
-            diffs[k] = d
-            if d:
-                worst = max(worst, (g.long() - r.long()).abs().max().item())
+        worst, diffs = differing(pairs)
         log(f"scan {label}: differing elements per output "
             f"{json.dumps(diffs)}; peak records per column "
             f"{int(ref['cnt'].max())} of {K}; overflow "
             f"{int(ref['overflow'].sum())}")
         check(all(v == 0 for v in diffs.values()),
               f"scan {label}: kernel differs from scan_reference")
-        return worst, a.elapsed_time(b)
+        return worst, plain_ms
 
     def row_bytes(self, rows, scnt, row_words):
         """Bytes of the seg rows a kernel must read: `row_words` words of
@@ -332,6 +341,56 @@ class Smoke:
         rows, scnt = self.paint.build_rows(eng.level, frame, order)
         return self.compare_scan(eng, cfg, rows, scnt, label)[0]
 
+    @staticmethod
+    def fresh(out):
+        """The paint result with its own copies of idx / ld / rgb (the
+        item passes update them in place)."""
+        return dict(out, **{k: out[k].clone() for k in ("idx", "ld", "rgb")})
+
+    def compare_itempass(self, eng, cfg, pack, out, label):
+        """K3 against item_pass_reference on the same pack and paint
+        result; returns (worst error, plain ms, the kernel's frames)."""
+        lvl = eng.level
+        ref_in = self.fresh(out)
+        got, ref, plain_ms = against_plain(
+            lambda: self.itempass.item_pass(lvl, cfg, pack, self.fresh(out)),
+            lambda: self.itempass.item_pass_reference(lvl, cfg, pack, ref_in))
+        worst = self.compare_frames(
+            "itempass", got, ref, out["idx"], label,
+            f"items per camera {pack['i'].shape[1]}")
+        return worst, plain_ms, got
+
+    def check_itempass(self, eng, st, cfg, label, capped=False):
+        """K3 on a state's paint result and item pack.  With `capped`,
+        the deferred pass at cfg.item_capacity on the same inputs must
+        overflow, and its frame then differs from the item pass's, which
+        draws every item."""
+        from doomtpu_torch.render import things
+
+        frame, order, args = self.stage_inputs(eng, st, cfg)
+        out = self.paint.paint(eng.level, cfg, *args)
+        pack, _ = things.item_pack(
+            eng.level, cfg, frame, order, st.pos[:, 0], st.pos[:, 1],
+            st.angle, st.floor_height, st.sector_light, st.mobj_state)
+        worst, _, got = self.compare_itempass(eng, cfg, pack, out, label)
+        if capped:
+            pools = things.pools_from_paint(out)
+            ipool, icnt, daux = self.item_inputs(eng, st, frame, order,
+                                                 pools, cfg)
+            pool_idx = self.composite(
+                eng.level, cfg, ipool, icnt,
+                *[out[k].clone() for k in ("idx", "ld", "rgb")],
+                clip=pools[0])[0]
+            dropped = int(daux["item_overflow"].sum())
+            differ = int((pool_idx != got[0]).sum())
+            log(f"  deferred pass at item_capacity={cfg.item_capacity}: "
+                f"{dropped} item records dropped (uncapped peak "
+                f"{int(daux['item_peak'].max())}); pixels where its frame "
+                f"and the item pass's differ: {differ}")
+            check(dropped > 0 and differ > 0,
+                  f"{label}: the capped deferred pass dropped nothing")
+        return worst
+
     # ---- the main paths ---------------------------------------------------
     def check_frames(self, idx, rgb, cfg, what):
         import torch
@@ -364,25 +423,30 @@ class Smoke:
             f"rgb {d_rgb}")
         check(d_idx == 0 and d_rgb == 0, f"{what}: card and CPU port disagree")
 
-    def main_paths(self, eng, cpu_eng, state, cfg, label, walls_kernel):
-        """render_walls, then render, each driven once: its launches (the
-        walls kernel `walls_kernel` once and the other never, the item
-        kernel once in render only), its frames, its counters (all 0) and
-        16 cameras against the CPU port; then both timed and render
-        profiled.  Returns render's launches."""
+    def main_paths(self, eng, cpu_eng, state, cfg, label, walls_kernel,
+                   item_kernel="items", with_walls=True):
+        """render_walls (unless `with_walls` is False), then render, each
+        driven once: its launches (the walls kernel `walls_kernel` once
+        and the other never; the item kernel `item_kernel` once in render
+        only, the other item kernel never), its frames, its counters (all
+        0) and 16 cameras against the CPU port; then each timed and
+        render profiled.  Returns render's launches."""
         import torch
 
         other = "scan" if walls_kernel == "paint" else "paint"
+        no_items = {"items": 0, "itempass": 0}
         sel = torch.linspace(0, B - 1, 16).long().to(self.dev)
         cpu_state = state.map(lambda x: x[sel].cpu())
+        runs = [(eng.render, eng.render_counters, cpu_eng.render,
+                 dict(no_items, **{item_kernel: 1}))]
+        if with_walls:
+            runs.insert(0, (eng.render_walls, eng.render_walls_counters,
+                            cpu_eng.render_walls, no_items))
         frames = {}
-        for call, counters, cpu_call, items in (
-                (eng.render_walls, eng.render_walls_counters,
-                 cpu_eng.render_walls, 0),
-                (eng.render, eng.render_counters, cpu_eng.render, 1)):
+        for call, counters, cpu_call, items in runs:
             what = f"{call.__name__} {label}"
             idx, rgb = self.drive(eng, state, call, what,
-                                  {walls_kernel: 1, other: 0, "items": items})
+                                  {walls_kernel: 1, other: 0, **items})
             launches = self.counts()
             self.check_frames(idx, rgb, cfg, what)
             got = counters(state)
@@ -391,14 +455,18 @@ class Smoke:
                   f"{what}: capacity counters not 0: {got}")
             self.against_cpu(idx, rgb, cpu_call, cpu_state, sel, what)
             frames[call.__name__] = idx
-        changed = (frames["render"] != frames["render_walls"]).float().mean()
+        walls = frames.get("render_walls")
+        if walls is None:
+            walls = eng.render_walls(state)[0]
+        changed = (frames["render"] != walls).float().mean()
         log(f"render {label}: share of pixels the items changed "
             f"{changed.item():.6f}")
         check(changed.item() > 0.01, f"{label}: the items drew almost nothing")
-        del frames, idx, rgb
+        del frames, walls, idx, rgb
 
         # timing: warm once, timed calls, synchronize, host checksum
-        self.time_path(eng.render_walls, state, f"render_walls {label}")
+        if with_walls:
+            self.time_path(eng.render_walls, state, f"render_walls {label}")
         render_ms = self.time_path(eng.render, state, f"render {label}")
         profile_render(eng.render, state, self.card, render_ms)
         return launches
@@ -430,6 +498,7 @@ class Smoke:
         torch.cuda.synchronize()
         checksum = int(out[1].sum().item())
         dt = (time.perf_counter() - t0) / reps
+        self.checksums[what] = checksum
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"{what} 320x200 B={B}: {dt * 1e3:.3f} ms/batch, "
             f"{B / dt:.1f} frames/s, peak {peak:.2f} GiB, checksum "
@@ -488,6 +557,69 @@ class Smoke:
             f"{clip_recs} clip records, {touched} pixels written), "
             f"~{i_ops:.4g} operations ({fold_rows} fold rows, {clip_tests} "
             f"clip tests) -> {ms:.4f} ms ({by})")
+        return ms, by
+
+    def timed_itempass(self, eng, cfg, pack, out):
+        """K3's mean device ms over 5 calls on fresh frame copies."""
+        import torch
+
+        ms = []
+        for _ in range(6):
+            fresh = self.fresh(out)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            self.itempass.item_pass(eng.level, cfg, pack, fresh)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sum(ms[1:]) / 5
+
+    def itempass_bound(self, eng, cfg, pack, out, got):
+        """K3: of the pack, the first three words of every item (valid,
+        x0, x1e) and the rest of each item that covers a column of its
+        camera; the clip records of the columns a sprite covers and the
+        mid records of the columns a mid covers; both counts of every
+        column; the atlas and palette once; idx / ld / rgb written once
+        where the items changed them.  Operations: ~30 per (item,
+        column) of billboard math, ~8 per clip test, ~3 per mid-record
+        test, ~8 per written pixel."""
+        import torch
+
+        lvl = eng.level
+        nb = lambda t: t.numel() * t.element_size()
+        ip = pack["i"]
+        Bn, N, _ = ip.shape
+        fl, x0, x1e = ip[..., 0], ip[..., 1], ip[..., 2]
+        valid, spr = (fl & 1) != 0, (fl & 2) != 0
+        xs = torch.arange(cfg.width, device=self.dev)
+        cov = valid[..., None] & (xs >= x0[..., None]) & (xs < x1e[..., None])
+        cov_s = (cov & spr[..., None]).sum(1, dtype=torch.int32)     # [B, W]
+        cov_m = (cov & ~spr[..., None]).sum(1, dtype=torch.int32)
+        covering = int(cov.any(2).sum())
+        del cov
+        ccnt = torch.clamp(out["cnt_clip"], max=cfg.clip_capacity)
+        mcnt = torch.clamp(out["cnt_mid"], max=cfg.mid_capacity)
+        clip_recs = int(ccnt[cov_s > 0].sum())
+        mid_recs = int(mcnt[cov_m > 0].sum())
+        clip_tests = int((cov_s * ccnt).sum())
+        mid_tests = int((cov_m * mcnt).sum())
+        item_cols = int(cov_s.sum() + cov_m.sum())
+        touched = int(((got[0] != out["idx"]) | (got[1] != out["ld"])
+                       | (got[2] != out["rgb"])).sum())
+        rest = (nb(ip) + nb(pack["f"])) // (Bn * N) - 12
+        i_in = (Bn * N * 12 + covering * rest + clip_recs * 6 * 4
+                + mid_recs * 7 * 4 + nb(ccnt) + nb(mcnt) + nb(lvl.atlas_cm)
+                + nb(lvl.palette_packed))
+        i_out = touched * 3 * 4
+        i_ops = (30.0 * item_cols + 8.0 * clip_tests + 3.0 * mid_tests
+                 + 8.0 * touched)
+        ms, by = bound(i_in + i_out, i_ops)
+        log(f"bound itempass: {i_in + i_out} bytes ({Bn * N} (camera, item) "
+            f"pairs, {covering} covering a column; {clip_recs} clip and "
+            f"{mid_recs} mid records; {touched} pixels written), "
+            f"~{i_ops:.4g} operations ({item_cols} (item, column) pairs, "
+            f"{clip_tests} clip tests, {mid_tests} mid-record tests) -> "
+            f"{ms:.4f} ms ({by})")
         return ms, by
 
 
@@ -752,6 +884,79 @@ def scan_cell(s: Smoke) -> dict:
     }
 
 
+def itempass_cell(s: Smoke) -> dict:
+    """e1m1-scale with use_item_pass_kernel: render through K1 and K3,
+    every selected item drawn (no item pool, no item cap).  The same map,
+    poses and pools as the paint cell, whose render takes the deferred
+    pass and K2."""
+    import torch
+
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.render import camera as cam
+    from doomtpu_torch.render import things
+    from doomtpu_torch.render.camsort import sort_state, unsort_out
+    from doomtpu_torch.render.frame import itempass_available
+    from doomtpu_torch.wad import synth
+
+    phase("e1m1-scale: the item pass")
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=64, use_item_pass_kernel=True)
+    log(f"config: {cfg.width}x{cfg.height} mid_capacity={cfg.mid_capacity} "
+        f"clip_capacity={cfg.clip_capacity} use_item_pass_kernel="
+        f"{cfg.use_item_pass_kernel} (item_capacity {cfg.item_capacity} "
+        f"unused)")
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=s.dev)
+    check(itempass_available(eng.level, cfg, B),
+          "e1m1-scale does not take the item pass")
+    state = s.new_game(eng, B)
+    cpu_eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                        config=cfg, device="cpu")
+    launches = s.main_paths(eng, cpu_eng, state, cfg, "e1m1-scale item pass",
+                            "paint", item_kernel="itempass", with_walls=False)
+    # the paint cell's deferred pass dropped no item on these poses (its
+    # uncapped peak fits its item pool), so both draw the same frames
+    check(s.checksums["render e1m1-scale item pass"]
+          == s.checksums["render e1m1-scale"],
+          "the item pass and the drop-free deferred pass disagree")
+
+    # where the time goes: each stage alone on the Morton-sorted batch
+    sp, _ = sort_state(state)
+    lvl = eng.level
+    px, py = sp.pos[:, 0], sp.pos[:, 1]
+    stage = {}
+    stage["camera stage + order"] = event_ms(lambda: (
+        cam.build_seg_frame(lvl, cfg, px, py, sp.angle, sp.floor_height,
+                            sp.sector_light, sp.timestamp),
+        cam.seg_order(lvl, cam.traversal_rank(lvl, px, py))), 3)
+    frame, order, args = s.stage_inputs(eng, sp)
+    stage["paint input build"] = event_ms(lambda: s.paint.build_inputs(
+        lvl, cfg, frame, order, sp.angle, px, py, sp.floor_height), 3)
+    stage["paint kernel"] = event_ms(lambda: s.paint.paint(lvl, cfg, *args), 5)
+    out = s.paint.paint(lvl, cfg, *args)
+    pack_args = (lvl, cfg, frame, order, px, py, sp.angle, sp.floor_height,
+                 sp.sector_light, sp.mobj_state)
+    stage["item pack"] = event_ms(lambda: things.item_pack(*pack_args), 3)
+    pack, _ = things.item_pack(*pack_args)
+    stage["item-pass kernel"] = s.timed_itempass(eng, cfg, pack, out)
+    stage["sort + unsort"] = event_ms(
+        lambda: unsort_out((out["idx"], out["rgb"]), sort_state(state)[1]), 3)
+    log(f"stages e1m1-scale item pass at B={B} (CUDA events, ms): "
+        + json.dumps({k: round(v, 4) for k, v in stage.items()})
+        + f"  [{s.card}]")
+
+    # K3 against its plain version on the path's own inputs, whole batch
+    err, plain_ms, got = s.compare_itempass(
+        eng, cfg, pack, out, f"e1m1-scale B={B} main-path inputs")
+    log(f"itempass at B={B}: kernel {stage['item-pass kernel']:.4f} ms, "
+        f"plain PyTorch {plain_ms:.2f} ms (one call)  [{s.card}]")
+    bound_ms, bound_by = s.itempass_bound(eng, cfg, pack, out, got)
+    return {"itempass": {"launches": launches["itempass"], "max_abs_err": err,
+                         "ms": stage["item-pass kernel"], "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}}
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -867,7 +1072,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    libs = ("paint", "items", "scan")
+    libs = ("paint", "items", "scan", "itempass")
     t0 = time.perf_counter()
     build.build_libraries(*libs)
     for name in libs:
@@ -898,6 +1103,8 @@ def main() -> int:
     err["scan"] = max(s.check_scan(
         demo, demo_st, RenderConfig(span_capacity=k),
         f"demo B=8 span_capacity={k}") for k in (16, 4))
+    err["itempass"] = s.check_itempass(
+        demo, demo_st, RenderConfig(use_item_pass_kernel=True), "demo B=8")
 
     cfg = RenderConfig(width=320, height=200, mid_capacity=40,
                        clip_capacity=64, item_capacity=24)
@@ -909,6 +1116,10 @@ def main() -> int:
                        s.compare_paint(e1, args32, "e1m1-scale B=32")[0])
     err["items"] = max(err["items"],
                        s.check_items(e1, st32, cfg, "e1m1-scale B=32"))
+    # the item pass draws the items a capped item pool drops
+    err["itempass"] = max(err["itempass"], s.check_itempass(
+        e1, st32, dataclasses.replace(cfg, item_capacity=8),
+        "e1m1-scale B=32", capped=True))
     # the scan on a paint-eligible level (the pipeline forced) and on the
     # masked one
     err["scan"] = max(err["scan"], s.check_scan(
@@ -932,6 +1143,10 @@ def main() -> int:
         d1, s.stage_inputs(d1, st16)[2], "doom1-asset-scale B=16")[0])
     err["items"] = max(err["items"], s.check_items(d1, st16, cfg,
                                                    "doom1-asset-scale B=16"))
+    check(d1.level.itempaint_ok, "doom1-asset-scale is not item-pass eligible")
+    err["itempass"] = max(err["itempass"], s.check_itempass(
+        d1, st16, dataclasses.replace(cfg, max_visible_mobjs=256),
+        "doom1-asset-scale B=16 max_visible_mobjs=256"))
     kern_ms32 = event_ms(lambda: s.paint.paint(e1.level, cfg, *args32), 20)
     plain_ms32 = event_ms(
         lambda: s.paint.paint_reference(e1.level, cfg, *args32), 2)
@@ -943,6 +1158,8 @@ def main() -> int:
     r_paint = paint_cell(s)
     torch.cuda.empty_cache()
     r_scan = scan_cell(s)
+    torch.cuda.empty_cache()
+    r_ip = itempass_cell(s)
     phase("done")
 
     check(not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -965,6 +1182,9 @@ def main() -> int:
         row("scan", "doomtpu_torch/ops/csrc/scan.cu",
             "doomtpu/ops/pallas_scan.py:46", r_scan["scan"],
             max(err["scan"], r_scan["scan"]["max_abs_err"])),
+        row("itempass", "doomtpu_torch/ops/csrc/itempass.cu",
+            "doomtpu/ops/pallas_itempass.py:57", r_ip["itempass"],
+            max(err["itempass"], r_ip["itempass"]["max_abs_err"])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

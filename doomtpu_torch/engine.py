@@ -9,8 +9,12 @@ unless the caller passes device="cpu" (where the kernels' plain PyTorch
 versions run).  This package renders full frames (walls, planes, sky,
 sprites, masked mids) of every level: through the paint kernel where
 the level and screen allow it, else through the wall-scan kernel and
-the resolve (render/frame.py).  The simulation and calibration come
-with later slices and raise NotImplementedError until then.
+the resolve (render/frame.py).  With
+`config=RenderConfig(use_item_pass_kernel=True)` an eligible level's
+sprites and masked mids come from the item-pass kernel, which draws
+every selected item (no item pool, no item_capacity cap).  The
+simulation and calibration come with later slices and raise
+NotImplementedError until then.
 """
 
 from __future__ import annotations

@@ -69,6 +69,20 @@ _SIGNATURES = {
         ),
         "doom_items_error_string": ([_I], _C.c_char_p),
     },
+    "itempass": {
+        "doom_itempass": (
+            [_P, _P, _I]                        # item packs i, f; N
+            + [_P] * 7                          # clip span d2 lsx lsy lex
+            #                                     ley, clip cnt
+            + [_P] * 8                          # mid span d1..d6, mid cnt
+            + [_P, _I, _I, _I, _I, _I, _I, _P]  # atlas n rows T TW spr0 PW
+            #                                     pal
+            + [_I, _I, _I, _I, _I, _F]          # B W H KC KM inv_255
+            + [_P, _P, _P, _P],                 # idx ld rgb stream
+            _I,
+        ),
+        "doom_itempass_error_string": ([_I], _C.c_char_p),
+    },
     "scan": {
         "doom_scan": (
             [_P, _P, _I, _I, _I, _I, _I, _I, _I]  # rows scnt B G W H K TW pow2

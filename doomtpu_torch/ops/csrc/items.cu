@@ -62,28 +62,6 @@ struct Params {
   int* idx; int* ld; int* rgb;           // [B, H, W], updated in place
 };
 
-__device__ __forceinline__ int lo16(int v) { return (int)(short)(v & 0xFFFF); }
-
-// jnp.minimum / maximum: a NaN operand gives NaN
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-
-// bitmap_render.rs:137-165: is the seg (ls -> le) NOT in front of v
-__device__ __forceinline__ bool is_behind_vertex(
-    float lsx, float lsy, float lex, float ley, float vx, float vy) {
-  float min_x = min_nan(lsx, lex), max_x = max_nan(lsx, lex);
-  // is_left_of(v, ls, le): cross(v - ls, le - ls) <= 0
-  float ax = __fsub_rn(vx, lsx), ay = __fsub_rn(vy, lsy);
-  float bx = __fsub_rn(lex, lsx), by = __fsub_rn(ley, lsy);
-  float cross = __fsub_rn(__fmul_rn(ax, by), __fmul_rn(ay, bx));
-  bool left = cross <= 0.0f;
-  return (min_x > vx) || ((max_x > vx) && !left);
-}
-
 __global__ void __launch_bounds__(THREADS) items_kernel(Params p) {
   const int w = blockIdx.x * THREADS + threadIdx.x;
   const int b = blockIdx.y;
@@ -107,21 +85,9 @@ __global__ void __launch_bounds__(THREADS) items_kernel(Params p) {
     int cb = lo16(word) - 1;
     if (ccnt > 0 && (word & SPR_MARK)) {
       const float vx = fbits(p.ivpx[o]), vy = fbits(p.ivpy[o]);
-      int tsc = -1, bsc = H;
-      ROLLED
-      for (int kc = 0; kc < ccnt; ++kc) {
-        const long c = clip0 + (long)kc * W;
-        if (is_behind_vertex(fbits(p.clsx[c]), fbits(p.clsy[c]),
-                             fbits(p.clex[c]), fbits(p.cley[c]), vx, vy))
-          continue;
-        const int cw = p.cspan[c];
-        const bool is_mid = ((cw >> 29) & 3) == KIND_MID;
-        const int cd2 = p.cd2[c];
-        if (cw & SPAN_E2T) tsc = max(tsc, (cw & 255) - 1);
-        if ((cw & SPAN_DC) && is_mid) tsc = max(tsc, lo16(cd2));
-        if (cw & SPAN_E2B) bsc = min(bsc, ((cw >> 8) & 255) - 1);
-        if (is_mid) bsc = min(bsc, cd2 >> 16);
-      }
+      int tsc, bsc;
+      clip_fold(p.cspan, p.cd2, p.clsx, p.clsy, p.clex, p.cley, clip0, W,
+                ccnt, vx, vy, H, tsc, bsc);
       ct = max(ct, tsc);
       cb = min(cb, bsc);
     }
@@ -155,30 +121,7 @@ __global__ void __launch_bounds__(THREADS) items_kernel(Params p) {
     }
   }
 
-  // shade the item pixels (bitmap_render.rs:190-208) and unmark idx
-  ROLLED
-  for (int y = ylo; y <= yhi; ++y) {
-    const long q = pix0 + (long)y * W;
-    const int v = p.idx[q];
-    if (v > -2) continue;
-    const int texel = -2 - v;
-    const int l = p.ld[q];
-    const float light = (float)((l >> 16) & 0xFF);
-    const float zd = (float)lo16(l);
-    float factor = __fsub_rn(__fmul_rn(light, p.inv_255),
-                             __fmul_rn(zd, 1.0f / 4096.0f));
-    factor = fmaxf(factor, 0.0f);
-    const int c = p.pal[texel];
-    int packed = 0;
-    for (int shift = 16; shift >= 0; shift -= 8) {
-      const float chan = (float)((c >> shift) & 0xFF);
-      const float byte = fminf(fmaxf(truncf(__fmul_rn(chan, factor)), 0.0f),
-                               255.0f);
-      packed |= ((int)byte) << shift;
-    }
-    p.idx[q] = texel;
-    p.rgb[q] = packed;
-  }
+  shade_marked_rows(p.idx, p.ld, p.rgb, p.pal, p.inv_255, pix0, W, ylo, yhi);
 }
 
 }  // namespace

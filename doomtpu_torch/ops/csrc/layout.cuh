@@ -1,5 +1,5 @@
 // Word layouts and device helpers shared by the kernels: paint.cu,
-// scan.cu and items.cu.  Mirrors doomtpu_torch/ops/layout.py: the span
+// scan.cu, items.cu and itempass.cu.  Mirrors doomtpu_torch/ops/layout.py: the span
 // record of the pools and the seg row the paint and wall-scan kernels
 // read.  Those two libraries export doom_row_words() = NR, which
 // ops/build.py checks against the Python NR when it loads them.
@@ -61,11 +61,93 @@ __device__ __forceinline__ int pack_span(int kind, int y0, int y1) {
   int y1c = min(max(y1, -1), 254) + 1;
   return shl(kind, 29) | shl(y0c, 8) | y1c;
 }
+__device__ __forceinline__ int lo16(int v) { return (int)(short)(v & 0xFFFF); }
+
+// jnp.minimum / maximum: a NaN operand gives NaN
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// bitmap_render.rs:137-165: is the seg (ls -> le) NOT in front of v
+__device__ __forceinline__ bool is_behind_vertex(
+    float lsx, float lsy, float lex, float ley, float vx, float vy) {
+  float min_x = min_nan(lsx, lex), max_x = max_nan(lsx, lex);
+  // is_left_of(v, ls, le): cross(v - ls, le - ls) <= 0
+  float ax = __fsub_rn(vx, lsx), ay = __fsub_rn(vy, lsy);
+  float bx = __fsub_rn(lex, lsx), by = __fsub_rn(ley, lsy);
+  float cross = __fsub_rn(__fmul_rn(ax, by), __fmul_rn(ay, bx));
+  bool left = cross <= 0.0f;
+  return (min_x > vx) || ((max_x > vx) && !left);
+}
+
 // if t < 0 { t += size * (1 - t / size) }; t %= size   (trunc div/rem)
 __device__ __forceinline__ int wrap_tex(int t, int size, int pow2) {
   if (pow2) return t & (size - 1);
   if (t < 0) t = t + size * (1 - t / size);
   return t % size;
+}
+
+// The sprite-vs-seg clip (renderer/map_objects.rs:127-166): over one
+// column's first cnt clip records (record kc at c0 + kc * W of each
+// plane), the tightest top (tsc, from -1) and bottom (bsc, from H) of
+// the records whose seg lies in front of the sprite at view-space
+// (vx, vy).
+__device__ __forceinline__ void clip_fold(
+    const int* cspan, const int* cd2, const int* clsx, const int* clsy,
+    const int* clex, const int* cley, long c0, int W, int cnt, float vx,
+    float vy, int H, int& tsc, int& bsc) {
+  tsc = -1;
+  bsc = H;
+  _Pragma("unroll 1")
+  for (int kc = 0; kc < cnt; ++kc) {
+    const long c = c0 + (long)kc * W;
+    if (is_behind_vertex(fbits(clsx[c]), fbits(clsy[c]), fbits(clex[c]),
+                         fbits(cley[c]), vx, vy))
+      continue;
+    const int cw = cspan[c];
+    const bool is_mid = ((cw >> 29) & 3) == KIND_MID;
+    const int d2 = cd2[c];
+    if (cw & SPAN_E2T) tsc = max(tsc, (cw & 255) - 1);
+    if ((cw & SPAN_DC) && is_mid) tsc = max(tsc, lo16(d2));
+    if (cw & SPAN_E2B) bsc = min(bsc, ((cw >> 8) & 255) - 1);
+    if (is_mid) bsc = min(bsc, d2 >> 16);
+  }
+}
+
+// The item kernels' last pass over one column's rows [ylo, yhi]: a
+// pixel an item wrote holds idx = -2 - texel (the paint frame's idx is
+// -1 or a texel).  Shade it (bitmap_render.rs:190-208: palette, light
+// diminish; light / 255 is the multiply by inv_255 = f32(1 / 255) that
+// XLA makes of it) and restore its idx.
+__device__ __forceinline__ void shade_marked_rows(
+    int* idx, const int* ld, int* rgb, const int* pal, float inv_255,
+    long pix0, int W, int ylo, int yhi) {
+  _Pragma("unroll 1")
+  for (int y = ylo; y <= yhi; ++y) {
+    const long q = pix0 + (long)y * W;
+    const int v = idx[q];
+    if (v > -2) continue;
+    const int texel = -2 - v;
+    const int l = ld[q];
+    const float light = (float)((l >> 16) & 0xFF);
+    const float zd = (float)lo16(l);
+    float factor = __fsub_rn(__fmul_rn(light, inv_255),
+                             __fmul_rn(zd, 1.0f / 4096.0f));
+    factor = fmaxf(factor, 0.0f);
+    const int c = pal[texel];
+    int packed = 0;
+    for (int shift = 16; shift >= 0; shift -= 8) {
+      const float chan = (float)((c >> shift) & 0xFF);
+      const float byte = fminf(fmaxf(truncf(__fmul_rn(chan, factor)), 0.0f),
+                               255.0f);
+      packed |= ((int)byte) << shift;
+    }
+    idx[q] = texel;
+    rgb[q] = packed;
+  }
 }
 
 }  // namespace

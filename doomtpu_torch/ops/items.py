@@ -39,15 +39,12 @@ from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, f32, fdiv, is_left_of, smul, wrap_tex,
 )
+from doomtpu_torch.render.resolve import unpack16_lo
 
 SPR_MARK = 1 << 29   # item word flag: the slot is a sprite (seg-clippable)
 # word, atlas column, by|ty, off_y|th, light|zdist, uy1 bits, vpx, vpy
 ITEM_PLANES = 8
 CLIP_FIELDS = ("span", "d2", "lsx", "lsy", "lex", "ley")
-
-
-def _lo16(v):
-    return (v << 16) >> 16
 
 
 def _check(level: DeviceLevel, cfg: RenderConfig, ipool, icnt, idx, ld, rgb,
@@ -144,29 +141,39 @@ def clipped_words(ipool, clip, H: int):
     vpx, vpy = ipool[6].view(F32), ipool[7].view(F32)
     tsc = torch.full((B, KI, W), -1, dtype=I32, device=word.device)
     bsc = torch.full((B, KI, W), H, dtype=I32, device=word.device)
-    spans, d2 = clip["span"], clip["d2"]
-    for kc in range(spans.shape[1]):
-        row = lambda k: clip[k][:, kc:kc + 1]                 # [B, 1, W]
-        fv = lambda k: row(k).view(F32)
-        cw = row("span")
-        front = (kc < clip["cnt"])[:, None] & ~is_behind_vertex(
-            fv("lsx"), fv("lsy"), fv("lex"), fv("ley"), vpx, vpy)
-        is_mid = ((cw >> 29) & 3) == KIND_MID
-        e2t = (cw & SPAN_E2T) != 0
-        e2b = (cw & SPAN_E2B) != 0
-        dc = ((cw & SPAN_DC) != 0) & is_mid
-        y0, y1 = ((cw >> 8) & 255) - 1, (cw & 255) - 1
-        byf, tyf = d2[:, kc:kc + 1] >> 16, _lo16(d2[:, kc:kc + 1])
-        tsc = torch.maximum(tsc, torch.maximum(
-            torch.where(front & e2t, y1, -1), torch.where(front & dc, tyf, -1)))
-        bsc = torch.minimum(bsc, torch.minimum(
-            torch.where(front & e2b, y0, H), torch.where(front & is_mid, byf, H)))
+    for kc in range(clip["span"].shape[1]):
+        rec = {k: clip[k][:, kc:kc + 1] for k in CLIP_FIELDS}   # [B, 1, W]
+        top, bottom = clip_record_bounds(
+            rec, vpx, vpy, (kc < clip["cnt"])[:, None], H)
+        tsc = torch.maximum(tsc, top)
+        bsc = torch.minimum(bsc, bottom)
     ct = ((word >> 16) & 0x1FF) - 1
-    cb = _lo16(word) - 1
+    cb = unpack16_lo(word) - 1
     ct = torch.clamp(torch.maximum(ct, tsc), max=H)
     cb = torch.minimum(cb, bsc)
     clipped = (((ct + 1) & 0xFFFF) << 16) | ((cb + 1) & 0xFFFF) | SPR_MARK
     return torch.where((word & SPR_MARK) != 0, clipped, word)
+
+
+def clip_record_bounds(rec: dict, vx, vy, valid, H: int):
+    """One clip record's bounds on a sprite at view-space (vx, vy)
+    (map_objects.rs:127-166): (top, bottom), -1 / H where the record is
+    not `valid` or its seg lies behind the sprite.  `rec` holds the
+    CLIP_FIELDS planes (broadcasting with vx, vy, valid); a column's
+    clip is the max of its records' tops and the min of their bottoms."""
+    f = lambda k: rec[k].view(F32)
+    cw, d2 = rec["span"], rec["d2"]
+    front = valid & ~is_behind_vertex(f("lsx"), f("lsy"), f("lex"), f("ley"),
+                                      vx, vy)
+    is_mid = ((cw >> 29) & 3) == KIND_MID
+    dc = ((cw & SPAN_DC) != 0) & is_mid
+    top = torch.maximum(
+        torch.where(front & ((cw & SPAN_E2T) != 0), (cw & 255) - 1, -1),
+        torch.where(front & dc, unpack16_lo(d2), -1))
+    bottom = torch.minimum(
+        torch.where(front & ((cw & SPAN_E2B) != 0), ((cw >> 8) & 255) - 1, H),
+        torch.where(front & is_mid, d2 >> 16, H))
+    return top, bottom
 
 
 def is_behind_vertex(lsx, lsy, lex, ley, vx, vy):
@@ -203,9 +210,9 @@ def composite_items_reference(level: DeviceLevel, cfg: RenderConfig, ipool,
         plane = lambda i: ipool[i][:, k][:, None, :]          # [B, 1, W]
         w_k = word[:, k][:, None, :]
         ct = ((w_k >> 16) & 0x1FF) - 1
-        cb = _lo16(w_k) - 1
-        by, ty = plane(2) >> 16, _lo16(plane(2))
-        off_y, th = plane(3) >> 16, _lo16(plane(3))
+        cb = unpack16_lo(w_k) - 1
+        by, ty = plane(2) >> 16, unpack16_lo(plane(2))
+        off_y, th = plane(3) >> 16, unpack16_lo(plane(3))
         uy1 = plane(5).view(F32)
         cover = ok & (yy >= ct) & (yy <= cb)
         ay = fdiv(f32(yy - ty), f32(by - ty))
@@ -217,18 +224,27 @@ def composite_items_reference(level: DeviceLevel, cfg: RenderConfig, ipool,
         texel_v = torch.where(write, packed & 0xFF, texel_v)
         lz_v = torch.where(write, plane(4), lz_v)
         touched = touched | write
-    light = lz_v >> 16
-    zd = _lo16(lz_v)
-    factor = f32(light) * _consts(cfg)["inv_255"] - smul(f32(zd), 1.0 / 4096.0)
+    return shade_over(level, cfg, touched, texel_v, lz_v | LD_WRITTEN, idx, ld,
+                      rgb)
+
+
+def shade_over(level: DeviceLevel, cfg: RenderConfig, touched, texel, ldw,
+               idx, ld, rgb):
+    """The item pixels `touched` marks, shaded from their texel and
+    written ld word ldw (bitmap_render.rs:190-208: palette, light
+    diminish; light / 255 is the multiply by f32(1/255) that XLA makes
+    of it) and merged over idx / ld / rgb in place."""
+    factor = (f32((ldw >> 16) & 0xFF) * _consts(cfg)["inv_255"]
+              - smul(f32(unpack16_lo(ldw)), 1.0 / 4096.0))
     factor = torch.clamp(factor, min=0.0)
-    rgbw = level.palette_packed[texel_v.long()]
+    rgbw = level.palette_packed[texel.long()]
     shaded = torch.zeros_like(idx)
     for shift in (16, 8, 0):
         chan = f32((rgbw >> shift) & 0xFF)
         byte = torch.clamp(torch.trunc(chan * factor), 0.0, 255.0).to(I32)
         shaded = shaded | (byte << shift)
-    idx.copy_(torch.where(touched, texel_v, idx))
-    ld.copy_(torch.where(touched, lz_v | LD_WRITTEN, ld))
+    idx.copy_(torch.where(touched, texel, idx))
+    ld.copy_(torch.where(touched, ldw, ld))
     rgb.copy_(torch.where(touched, shaded, rgb))
     return idx, ld, rgb
 

@@ -221,6 +221,25 @@ def render_paint(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     return out
 
 
+def pools_from_paint(out_or_aux: dict):
+    """(clip, mid) pools from the paint stage's output dict or aux, as
+    slot-major [B, K, W] planes (the paint kernel's own layout)."""
+    sm = lambda p: p.transpose(1, 2)
+    c_span, c_d2, c_d6, c_lsx, c_lsy, c_lex, c_ley = map(
+        sm, out_or_aux["clippool"])
+    m = [sm(p) for p in out_or_aux["midpool"]]
+    clip = {
+        "span": c_span, "d2": c_d2, "d6": c_d6,
+        "lsx": c_lsx, "lsy": c_lsy, "lex": c_lex, "ley": c_ley,
+        "cnt": out_or_aux["cnt_clip"],
+    }
+    mid = {
+        "span": m[0], "d1": m[1], "d2": m[2], "d3": m[3], "d4": m[4],
+        "d5": m[5], "d6": m[6], "cnt": out_or_aux["cnt_mid"],
+    }
+    return clip, mid
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrapper
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@ Counterpart of doomtpu/render/device.py.  One `DeviceLevel` per loaded
 map: every camera-independent quantity the render path needs, computed
 once on the host with numpy and moved to the given device.  The JAX
 level's TPU packings (texel rows 4 per word, the bf16 column atlases,
-the 40-word item rows, one-hot operands) have no counterpart: the paint
-kernel reads the unpacked `tex_pixels`, `flat_pixels` and `sky_pixels`
-tables, the item kernel the unpacked column atlas `atlas_cm`.
+the 40-word item rows, the per-picture item_q / item_mq tables, one-hot
+operands) have no counterpart: the paint kernel reads the unpacked
+`tex_pixels`, `flat_pixels` and `sky_pixels` tables, the item and
+item-pass kernels the unpacked column atlas `atlas_cm`.
 """
 
 from __future__ import annotations
@@ -149,10 +150,14 @@ class DeviceLevel:
     # every solid / lower / upper wall-piece texture is opaque: the
     # resolve's winner fold is exact then (see render/resolve.py)
     wall_tex_all_opaque: bool = True
+    # eligibility for the item-pass kernel (as the JAX level): atlas rows
+    # <= 128, every sprite picture and every two-sided mid texture
+    # <= 128 x 128
+    itempaint_ok: bool = False
 
     STATIC_FIELDS = ("tex_sizes_pow2", "paint_ok", "texq_wide", "atlas_rows",
                      "spr_pw", "sky_tex", "sky_is_opaque",
-                     "wall_tex_all_opaque")
+                     "wall_tex_all_opaque", "itempaint_ok")
 
     @classmethod
     def tensor_fields(cls) -> tuple[str, ...]:
@@ -275,6 +280,13 @@ class DeviceLevel:
         )
         pal = a.palette.astype(np.int64)
         atlas_cm, atlas_rows = _atlas(a)
+        mid_tex = np.unique(mid_np[two_sided_np])
+        itempaint_ok = (
+            atlas_rows <= 128
+            and bool(np.all(a.spr_w <= 128)) and bool(np.all(a.spr_h <= 128))
+            and all(a.tex_w[ti] <= 128 and a.tex_h[ti] <= 128
+                    for ti in mid_tex[mid_tex >= 0])
+        )
 
         arrays = dict(
             seg_v1=t.vertexes[t.seg_v[:, 0]],
@@ -340,6 +352,7 @@ class DeviceLevel:
             sky_tex=int(a.sky_tex),
             sky_is_opaque=sky_is_opaque,
             wall_tex_all_opaque=wall_tex_all_opaque,
+            itempaint_ok=itempaint_ok,
         )
         return level_from_numpy(arrays, device)
 

@@ -6,7 +6,9 @@ the paint kernel where the level and screen allow it (`paint_available`,
 the JAX frame.py:245-259 path), else from the scan + resolve pipeline:
 the wall-scan kernel's unified span pool, the resolve and the shade
 (JAX frame.py:261-272).  Both then run the same deferred pass with the
-item kernel.
+item kernel, unless the config asks for the item-pass kernel and the
+level takes it (`itempass_available`, JAX frame.py:206-244): then the
+paint stage's frame gets every selected item from that one kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from doomtpu_torch.config import RenderConfig
+from doomtpu_torch.ops.itempass import item_pass
 from doomtpu_torch.ops.paint import LD_SKY, LD_WRITTEN, render_paint
 from doomtpu_torch.render import camera as cam
 from doomtpu_torch.render import resolve as res
@@ -28,6 +31,37 @@ def paint_available(level: DeviceLevel, cfg: RenderConfig) -> bool:
     up to 1024 columns (one thread per column in one block).  Every
     other level or screen takes the scan + resolve pipeline."""
     return level.paint_ok and cfg.width <= 1024
+
+
+def _itempack_fits(level: DeviceLevel, cfg: RenderConfig) -> bool:
+    """The JAX package's item-pack budget (frame.py:54-62): the selected
+    items' packs, 1280 bytes each, within 600,000 bytes of the TPU's
+    scalar memory.  A TPU limit, kept because the branch it picks
+    decides the frame (every item drawn, or a capped item pool)."""
+    I = level.num_mobjs + int(level.dseg_ix.shape[0])
+    if I == 0:
+        return False
+    N = I if cfg.max_visible_mobjs <= 0 else min(cfg.max_visible_mobjs, I)
+    return N * 1280 <= 600_000
+
+
+def itempass_available(level: DeviceLevel, cfg: RenderConfig, B: int) -> bool:
+    """The item-pass kernel draws the items when the config asks for it
+    and the JAX package's conditions hold, so that one config draws the
+    same frame in both: the paint path with its batch, height and
+    seg-count terms (JAX paint_available, less its backend test), a level
+    whose sprite and mid pictures fit 128 x 128, and packs within
+    _itempack_fits.  Otherwise the deferred pass runs."""
+    return (
+        cfg.use_item_pass_kernel
+        and paint_available(level, cfg)
+        and B % 4 == 0
+        and cfg.height % 8 == 0
+        and (level.num_segs <= cfg.paint_max_segs
+             or cfg.paint_live_capacity > 0)
+        and level.itempaint_ok
+        and _itempack_fits(level, cfg)
+    )
 
 
 def _frame_and_order(level, cfg, px, py, angle, floor_height, sector_light,
@@ -128,6 +162,8 @@ def render_frame(
     frame, plus the item counters items_dropped, item_overflow and
     item_block_dropped (0: there is no block-local emission)."""
     args = (px, py, angle, floor_height, sector_light, mobj_state)
+    if itempass_available(level, cfg, px.shape[0]):
+        return _render_item_pass(level, cfg, *args, timestamp)
     if not paint_available(level, cfg):
         idx, light, dist, is_sky, aux = _stages_scan(
             level, cfg, px, py, angle, floor_height, sector_light, timestamp
@@ -154,3 +190,23 @@ def render_frame(
     aux.update(_decoded(ld))
     aux.update(daux)
     return idx, rgb, aux
+
+
+def _render_item_pass(level, cfg, px, py, angle, floor_height, sector_light,
+                      mobj_state, timestamp):
+    """render_frame through the item-pass kernel (JAX frame.py:206-244):
+    the paint stage, then every selected item painted over its frame.
+    No item pool, so item_overflow is 0."""
+    frame, order = _frame_and_order(level, cfg, px, py, angle, floor_height,
+                                    sector_light, timestamp)
+    out = render_paint(level, cfg, frame, order, angle, px, py, floor_height)
+    aux = _aux_paint(frame, order, out)
+    aux["item_block_dropped"] = torch.zeros((), dtype=I32, device=px.device)
+    ipack, item_aux = things.item_pack(level, cfg, frame, order, px, py,
+                                       angle, floor_height, sector_light,
+                                       mobj_state)
+    aux.update(item_aux)
+    if ipack is not None:
+        item_pass(level, cfg, ipack, out)
+    aux.update(_decoded(out["ld"]))
+    return out["idx"], out["rgb"], aux

@@ -3,8 +3,9 @@
 Counterpart of doomtpu/render/things.py (`pools_from_paint` or
 `pools_from_unified` -> `deferred_pass` with the item kernel) at its
 shipping defaults: dense emission (no block-local path), mid presence
-per selected item and the vectorized mid fill.  The stages and their
-arithmetic are the JAX package's:
+per selected item and the vectorized mid fill.  `item_pack` builds the
+item-pass kernel's inputs from the same selection (stages 1-2).  The
+stages and their arithmetic are the JAX package's:
 
 1. per-item scalars [B, I], I = mobjs + drawable mids: billboard
    projection and painter keys (renderer/map_objects.rs:37-121);
@@ -42,7 +43,14 @@ from doomtpu_torch.config import PLAYER_EYE_HEIGHT, RenderConfig
 from doomtpu_torch.ops.items import (
     ITEM_PLANES, SPR_MARK, composite_items, is_behind_vertex,
 )
+from doomtpu_torch.ops.itempass import (
+    IPF_DX, IPF_INV0, IPF_INV1, IPF_ROWS, IPF_UY1, IPF_VPX, IPF_VPY,
+    IPF_YBD, IPF_YBS, IPF_YTD, IPF_YTS, IPF_Z0, IPF_Z1, IPI_BSX, IPI_FL,
+    IPI_LW, IPI_PIC, IPI_ROWS, IPI_SOFF, IPI_TH, IPI_X0, IPI_X1E,
+)
 from doomtpu_torch.ops.layout import KIND_MID, pack16
+# re-exported: the JAX package's things.py holds pools_from_paint
+from doomtpu_torch.ops.paint import pools_from_paint  # noqa: F401
 from doomtpu_torch.render import camera as cam
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
@@ -66,25 +74,6 @@ def sprite_rotation(player_angle, mobj_angle):
     angle = torch.fmod(angle, two_pi)
     rot = (angle * 8.0) * reciprocal(_TWO_PI)
     return torch.clamp(torch.trunc(rot), 0, 255).to(I32)
-
-
-def pools_from_paint(out_or_aux: dict):
-    """(clip, mid) pools from the paint stage's output dict or aux, as
-    slot-major [B, K, W] planes (the paint kernel's own layout)."""
-    sm = lambda p: p.transpose(1, 2)
-    c_span, c_d2, c_d6, c_lsx, c_lsy, c_lex, c_ley = map(
-        sm, out_or_aux["clippool"])
-    m = [sm(p) for p in out_or_aux["midpool"]]
-    clip = {
-        "span": c_span, "d2": c_d2, "d6": c_d6,
-        "lsx": c_lsx, "lsy": c_lsy, "lex": c_lex, "ley": c_ley,
-        "cnt": out_or_aux["cnt_clip"],
-    }
-    mid = {
-        "span": m[0], "d1": m[1], "d2": m[2], "d3": m[3], "d4": m[4],
-        "d5": m[5], "d6": m[6], "cnt": out_or_aux["cnt_mid"],
-    }
-    return clip, mid
 
 
 def pools_from_unified(pool, cnt, frame: dict):
@@ -267,9 +256,82 @@ def _select_items(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
                 "vpx", "vpy")
         }
         out["spr"]["uy1"] = at_sel(sps["top_h"] - sps["bottom_h"])
+        sp = out["spr"]
+        sp["slen"] = sqrt(smul(sp["lsx"] - sp["lex"], sp["lsx"] - sp["lex"])
+                          + smul(sp["lsy"] - sp["ley"], sp["lsy"] - sp["ley"]))
     if D > 0:
         out["segsel"] = at_sel(level.dseg_ix[None].expand(B, D))
     return out
+
+
+def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
+              px, py, angle, floor_height, sector_light, mobj_state):
+    """The item-pass kernel's per-item packs (JAX things.item_pack).
+
+    Returns ({"i": [B, N, IPI_ROWS] i32, "f": [B, N, IPF_ROWS] f32},
+    aux), or (None, aux) when the level has no items; aux counts
+    items_dropped (beyond max_visible_mobjs) and item_overflow (0: the
+    item pass has no per-column cap).  Items are in painter order,
+    farthest first, so painting them in index order with nearer items
+    overwriting is the reference's back-to-front painter
+    (map_objects.rs:216-240)."""
+    B, dev = px.shape[0], px.device
+    zero_aux = {"items_dropped": torch.zeros((B,), dtype=I32, device=dev),
+                "item_overflow": torch.zeros((B,), dtype=I32, device=dev)}
+    s = _select_items(level, cfg, frame, order, px, py, angle, floor_height,
+                      sector_light, mobj_state)
+    if s is None:
+        return None, zero_aux
+    N = s["N"]
+    sel_valid, is_spr = s["sel_valid"], s["is_spr_sel"]
+    zero = torch.zeros((B, N), dtype=I32, device=dev)
+    zf = torch.zeros((B, N), dtype=F32, device=dev)
+    T = level.tex_pixels.shape[0]
+
+    spr_i = dict.fromkeys(range(IPI_ROWS), zero)
+    spr_f = dict.fromkeys(range(IPF_ROWS), zf)
+    if "spr" in s:
+        sp = s["spr"]
+        one = 1.0
+        spr_i.update({
+            IPI_X0: as_i16(sp["bsx"]),
+            IPI_X1E: as_i16(sp["bex"]),          # bex is exclusive already
+            IPI_LW: sp["light_m"] | (sp["w_pic"] << 16),
+            IPI_PIC: T + sp["pic_s"],
+            IPI_TH: level.spr_h[sp["pic_s"].long()],
+            IPI_SOFF: as_i16(sp["start_off"]),
+            IPI_BSX: sp["bsx"],
+        })
+        spr_f.update({
+            IPF_DX: (sp["bex"] - sp["bsx"]).to(F32),
+            IPF_INV0: fdiv(one, sp["lsx"]),
+            IPF_INV1: fdiv(one, sp["lex"]),
+            IPF_Z0: fdiv(0.0, sp["lsx"]),
+            IPF_Z1: fdiv(sp["slen"], sp["lex"]),
+            IPF_YBS: sp["yb_s"].to(F32), IPF_YBD: sp["yb_d"],
+            IPF_YTS: sp["yt_s"].to(F32), IPF_YTD: sp["yt_d"],
+            IPF_UY1: sp["uy1"], IPF_VPX: sp["vpx"], IPF_VPY: sp["vpy"],
+        })
+
+    mid_i = dict.fromkeys(range(IPI_ROWS), zero)
+    if "segsel" in s:
+        segsel = s["segsel"]
+        at = lambda x: torch.gather(x, 1, segsel.long())
+        mid_i.update({
+            IPI_X0: as_i16(at(frame["x0"])),
+            IPI_X1E: as_i16(at(frame["x1"])) + 1,
+            IPI_PIC: torch.clamp(level.seg_mid_tex[segsel.long()], min=0),
+            IPI_SOFF: segsel,
+        })
+
+    fl = sel_valid.to(I32) | (is_spr.to(I32) << 1)
+    rows_i = [fl if r == IPI_FL else torch.where(is_spr, spr_i[r], mid_i[r])
+              for r in range(IPI_ROWS)]
+    # the f32 rows are the sprites' (a mid reads its mid-pool slot)
+    pack = {"i": torch.stack(rows_i, -1).contiguous(),
+            "f": torch.stack([spr_f[r] for r in range(IPF_ROWS)],
+                             -1).contiguous()}
+    return pack, dict(zero_aux, items_dropped=s["items_dropped"])
 
 
 def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
@@ -351,12 +413,10 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
     # ---- sprite per-slot column math ------------------------------------
     if MO > 0:
         one = 1.0
-        s_len = sqrt(smul(sp["lsx"] - sp["lex"], sp["lsx"] - sp["lex"])
-                     + smul(sp["lsy"] - sp["ley"], sp["lsy"] - sp["ley"]))
         f = {
             "bsx": sp["bsx"], "dxi": sp["bex"] - sp["bsx"],
             "inv0": fdiv(one, sp["lsx"]), "inv1": fdiv(one, sp["lex"]),
-            "z0": fdiv(0.0, sp["lsx"]), "z1": fdiv(s_len, sp["lex"]),
+            "z0": fdiv(0.0, sp["lsx"]), "z1": fdiv(sp["slen"], sp["lex"]),
             "soffi": as_i16(sp["start_off"]), "wpic": sp["w_pic"],
             "pic": sp["pic_s"], "th": level.spr_h[sp["pic_s"].long()],
             "light": sp["light_m"],

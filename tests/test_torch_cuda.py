@@ -1,7 +1,7 @@
-"""Tests that need a CUDA card: the paint, item and wall-scan kernels
-against their plain PyTorch versions, and render / render_walls on the
-card against the same calls on the CPU, on the paint path and on the
-scan + resolve pipeline.
+"""Tests that need a CUDA card: the paint, item, item-pass and wall-scan
+kernels against their plain PyTorch versions, and render / render_walls
+on the card against the same calls on the CPU, on the paint path and on
+the scan + resolve pipeline.
 
 This file imports no JAX, so it also runs where there is a card and no
 JAX; the repo's conftest imports JAX, so leave it out there:
@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from doomtpu_torch.wad import synth  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.config import RenderConfig  # noqa: E402
+from doomtpu_torch.ops import itempass as tip  # noqa: E402
 from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
 from doomtpu_torch.ops import scan as ts  # noqa: E402
@@ -129,6 +130,36 @@ def test_item_kernel_equals_plain_version(engines, ki):
     assert ti.composite_items.launches == before + 1
     want = ti.composite_items_reference(eng.level, cfg, ipool, icnt, *bg(),
                                         clip=pools[0])
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert int((got[0] != out["idx"]).sum()) > 100
+
+
+def test_itempass_kernel_equals_plain_version(engines):
+    """Every selected item of 8 views of the demo map, through the
+    item-pass kernel and through its plain version."""
+    eng, _ = engines
+    cfg = RenderConfig(use_item_pass_kernel=True)
+    views = VIEWS * 2
+    st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
+                np.asarray([v[2] for v in views], np.float32))
+    px, py = st.pos[:, 0], st.pos[:, 1]
+    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
+                                st.floor_height, st.sector_light,
+                                st.timestamp)
+    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    out = tp.render_paint(eng.level, cfg, frame, order, st.angle, px, py,
+                          st.floor_height)
+    pack, _ = things.item_pack(eng.level, cfg, frame, order, px, py,
+                               st.angle, st.floor_height, st.sector_light,
+                               st.mobj_state)
+    fresh = lambda: dict(out, **{k: out[k].clone()
+                                 for k in ("idx", "ld", "rgb")})
+    before = tip.item_pass.launches
+    got = tip.item_pass(eng.level, cfg, pack, fresh())
+    torch.cuda.synchronize()
+    assert tip.item_pass.launches == before + 1
+    want = tip.item_pass_reference(eng.level, cfg, pack, fresh())
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
     assert int((got[0] != out["idx"]).sum()) > 100

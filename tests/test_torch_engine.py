@@ -3,7 +3,9 @@ render_walls against the JAX DoomEngine on the CPU (the JAX engine's
 XLA path: wall_scan + resolve + the deferred pass + shade).
 
 - demo: B=16 spread poses, so the camera sort (B > 8) runs on both
-  sides; the JAX GameState is moved across with state_from_numpy;
+  sides; the port's new_game state is moved across to a JAX GameState
+  (tests/test_torch_camera.py holds the two new_games equal), and the
+  JAX engine's four jitted renders are compiled together, once;
 - e1m1-scale and doom1-asset-scale: B=4 at 160x96, pools deep enough
   that neither side drops a record;
 - the golden frames (tests/golden/frames.npz, demo and e1m1_scale): the
@@ -25,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from doomtpu.config import RenderConfig  # noqa: E402
 from doomtpu.engine import DoomEngine as JaxEngine  # noqa: E402
@@ -35,7 +38,6 @@ from doomtpu_torch.render.device import DeviceLevel  # noqa: E402
 from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
 from doomtpu_torch.render.frame import render_frame  # noqa: E402
-from doomtpu_torch.sim.state import state_from_numpy  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,24 +73,48 @@ def engines():
             DoomEngine.from_wad_bytes(wad, "e1m1", device="cpu"))
 
 
+def _states(te, n, seed=0):
+    """(JAX, port) GameStates of the same n spread poses."""
+    pos, ang = _spread_poses(te.tables, n, seed)
+    ts = te.new_game(n, pos=pos, angle=ang,
+                     generator=torch.Generator().manual_seed(0))
+    return JaxState(**{f.name: jnp.asarray(getattr(ts, f.name).numpy())
+                       for f in dataclasses.fields(JaxState)}), ts
+
+
 @pytest.fixture(scope="module")
 def states(engines):
-    je, _ = engines
-    pos, ang = _spread_poses(je.tables, B)
-    js = je.new_game(B, key=jax.random.PRNGKey(0), pos=pos, angle=ang)
-    from dataclasses import fields
+    return _states(engines[1], B)
 
-    return js, state_from_numpy(
-        {f.name: np.asarray(getattr(js, f.name)) for f in fields(JaxState)},
-        "cpu",
+
+@pytest.fixture(scope="module")
+def jax_out(engines, states):
+    """The JAX engine's render_walls, render_walls_counters, render and
+    render_counters of the demo states: the engine's own jitted
+    functions (camera sort included), traced and compiled as one."""
+    from doomtpu.engine import (
+        _render_counters_jit, _render_jit, _render_walls_counters_jit,
+        _render_walls_jit,
     )
 
+    je, _ = engines
+    js, _ = states
+    cfg = je.config
+    fns = {"render_walls": _render_walls_jit,
+           "render_walls_counters": _render_walls_counters_jit,
+           "render": _render_jit, "render_counters": _render_counters_jit}
+    out = jax.jit(lambda level, st: {k: f(level, st, cfg, 1)
+                                     for k, f in fns.items()})(je.level, js)
+    for k in ("render_walls_counters", "render_counters"):
+        out[k] = {c: int(v) for c, v in out[k].items()}
+    return out
 
-def test_render_walls_equals_jax(engines, states):
-    je, te = engines
-    js, ts = states
+
+def test_render_walls_equals_jax(engines, states, jax_out):
+    _, te = engines
+    _, ts = states
     assert te.config.camera_sort and ts.batch > 8
-    jidx, jrgb = je.render_walls(js)
+    jidx, jrgb = jax_out["render_walls"]
     before = tp.paint.launches
     idx, rgb = te.render_walls(ts)
     assert tp.paint.launches == before          # CPU: the plain version
@@ -101,17 +127,18 @@ def test_render_walls_equals_jax(engines, states):
     assert int(full.sum()) >= B // 2
 
 
-def test_render_walls_counters_are_zero(engines, states):
-    je, te = engines
-    js, ts = states
+def test_render_walls_counters_are_zero(engines, states, jax_out):
+    _, te = engines
+    _, ts = states
     assert te.render_walls_counters(ts) == {"overflow": 0, "live_dropped": 0}
-    assert je.render_walls_counters(js) == {"overflow": 0, "live_dropped": 0}
+    assert jax_out["render_walls_counters"] == {"overflow": 0,
+                                                "live_dropped": 0}
 
 
-def test_render_equals_jax(engines, states):
-    je, te = engines
-    js, ts = states
-    jidx, jrgb = je.render(js)
+def test_render_equals_jax(engines, states, jax_out):
+    _, te = engines
+    _, ts = states
+    jidx, jrgb = jax_out["render"]
     before = (tp.paint.launches, ti.composite_items.launches)
     idx, rgb = te.render(ts)
     # CPU: the plain versions
@@ -122,11 +149,14 @@ def test_render_equals_jax(engines, states):
     walls_idx, _ = te.render_walls(ts)
     assert int((walls_idx != idx).sum()) > 1000
     counters = te.render_counters(ts)
-    assert counters == je.render_counters(js)
+    assert counters == jax_out["render_counters"]
     assert set(counters.values()) == {0}
 
 
-MAP_CFG = RenderConfig(width=160, height=96, span_capacity=160,
+# pools above the fixtures' uncapped peaks at these poses (span 42,
+# mid 7, clip 36, item 9 on doom1-asset-scale), no deeper: the JAX
+# side's compile time grows with span_capacity
+MAP_CFG = RenderConfig(width=160, height=96, span_capacity=48,
                        mid_capacity=40, clip_capacity=96, item_capacity=24)
 
 
@@ -143,11 +173,7 @@ def test_render_equals_jax_on_maps(wad_fn):
     wad = getattr(synth, wad_fn)()
     je = JaxEngine.from_wad_bytes(wad, "e1m1", config=MAP_CFG)
     te = DoomEngine.from_wad_bytes(wad, "e1m1", config=MAP_CFG, device="cpu")
-    pos, ang = _spread_poses(je.tables, 4, seed=2)
-    js = je.new_game(4, key=jax.random.PRNGKey(0), pos=pos, angle=ang)
-    ts = state_from_numpy(
-        {f.name: np.asarray(getattr(js, f.name))
-         for f in dataclasses.fields(JaxState)}, "cpu")
+    js, ts = _states(te, 4, seed=2)
 
     def one(level, st):
         idx, rgb, aux = jax_render_frame(
@@ -181,7 +207,8 @@ def test_render_equals_golden(name, info):
     mt, assets = build_fixture(name, info)
     _, _, ms = spawn_mobjs(mt, info)
     level = DeviceLevel.build(mt, assets, info, "cpu")
-    cfg = dataclasses.replace(MAP_CFG, width=320, height=200)
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=96, item_capacity=24)
     n = int(golden[f"{name}_n_views"])
     views = np.stack([golden[f"{name}_{vi}_view"] for vi in range(n)])
     f = lambda x: torch.as_tensor(np.asarray(x, np.float32))

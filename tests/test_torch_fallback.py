@@ -39,7 +39,6 @@ from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
 from doomtpu_torch.render import frame as tframe  # noqa: E402
 from doomtpu_torch.render.device import DeviceLevel  # noqa: E402
-from doomtpu_torch.sim.state import state_from_numpy  # noqa: E402
 from doomtpu_torch.wad import synth  # noqa: E402
 
 
@@ -78,15 +77,17 @@ def _spread_poses(t, n, seed):
             np.asarray([p[2] for p in poses], np.float32))
 
 
+# span pools above each case's uncapped peak (6, 30, 3), no deeper: the
+# JAX side's compile time grows with span_capacity
 CASES = {
     # name: (wad, config, batch)
     "grate-room": (grate_room_wad, RenderConfig(
-        width=160, height=100, span_capacity=32, item_capacity=16), 8),
+        width=160, height=100, span_capacity=8, item_capacity=16), 8),
     "e1m1-scale-masked": (synth.e1m1_scale_masked_wad, RenderConfig(
-        width=160, height=96, span_capacity=64, mid_capacity=40,
-        clip_capacity=64, item_capacity=24), 4),
+        width=160, height=96, span_capacity=40, mid_capacity=40,
+        clip_capacity=64, item_capacity=16), 4),
     "demo-1152": (synth.demo_wad, RenderConfig(
-        width=1152, height=64, span_capacity=32, item_capacity=16), 2),
+        width=1152, height=64, span_capacity=8, item_capacity=16), 2),
 }
 
 
@@ -105,11 +106,13 @@ def test_render_equals_jax_where_paint_is_unavailable(case):
     wad_fn, cfg, B = CASES[case]
     je, te = _engines(wad_fn(), cfg)
     assert not tframe.paint_available(te.level, cfg)
-    pos, ang = _spread_poses(je.tables, B, seed=2)
-    js = je.new_game(B, key=jax.random.PRNGKey(0), pos=pos, angle=ang)
-    ts = state_from_numpy(
-        {f.name: np.asarray(getattr(js, f.name))
-         for f in dataclasses.fields(JaxState)}, "cpu")
+    pos, ang = _spread_poses(te.tables, B, seed=2)
+    # the port's new_game, moved to JAX (tests/test_torch_camera.py holds
+    # the two new_games equal)
+    ts = te.new_game(B, pos=pos, angle=ang,
+                     generator=torch.Generator().manual_seed(0))
+    js = JaxState(**{f.name: jax.numpy.asarray(getattr(ts, f.name).numpy())
+                     for f in dataclasses.fields(JaxState)})
 
     def both(level, st):
         args = (st.pos[:, 0], st.pos[:, 1], st.angle, st.floor_height,

@@ -14,8 +14,8 @@ background frame.  Then:
   JAX `_kernel_kouter`, after the clip the port's clipped_words applies
   as the JAX XLA reductions do);
 - the deferred pass: the port's deferred_pass against the JAX
-  deferred_pass (XLA clip reductions and fold), with every item drawn
-  and with max_visible_mobjs dropping items.
+  deferred_pass (XLA clip reductions and fold, jitted), with every item
+  drawn and with max_visible_mobjs dropping items.
 
 Tolerance: exact equality of idx, ld (light / dist / sky), rgb and the
 item counters.
@@ -28,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from doomtpu.render import camera as jcam  # noqa: E402
@@ -60,7 +61,10 @@ VIEWS = [
 
 @pytest.fixture(scope="module")
 def cfg(config):
-    return dataclasses.replace(config, width=160, height=96)
+    # a clip pool at the views' peak (10), no deeper: the JAX item
+    # kernel's in-kernel clip unrolls one step per slot (its interpret
+    # call takes ~28 s at 10 slots, ~39 s at 16)
+    return dataclasses.replace(config, width=160, height=96, clip_capacity=10)
 
 
 @pytest.fixture(scope="module")
@@ -89,6 +93,7 @@ def scene(demo_level, cfg):
     order = tcam.seg_order(tl, tcam.traversal_rank(tl, p["px"], p["py"]))
     out = tp.render_paint(tl, cfg, frame, order, p["angle"], p["px"],
                           p["py"], p["floor_height"])
+    assert int(out["overflow"].sum()) == 0          # pools hold every record
     return jl, tl, poses, p, frame, order, out
 
 
@@ -146,24 +151,29 @@ def test_deferred_pass_equals_jax(scene, cfg, max_visible):
     jl, tl, poses, p, frame, order, out = scene
     cfg = dataclasses.replace(cfg, item_capacity=8,
                               max_visible_mobjs=max_visible)
-    j = {k: jnp.asarray(v) for k, v in poses.items()}
-    jframe = jcam.build_seg_frame(jl, cfg, j["px"], j["py"], j["angle"],
-                                  j["floor_height"], j["sector_light"],
-                                  j["timestamp"])
-    jorder = jcam.seg_order(jl, jcam.traversal_rank(jl, j["px"], j["py"]))
-    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
     jn = lambda x: jnp.asarray(x.numpy())
-    jpools = jthings.pools_from_paint({
-        "clippool": tuple(jn(x) for x in out["clippool"]),
-        "midpool": tuple(jn(x) for x in out["midpool"]),
-        "cnt_clip": jn(out["cnt_clip"]), "cnt_mid": jn(out["cnt_mid"]),
-    })
     ld = out["ld"]
-    jidx, jlight, jdist, jsky, jaux = jthings.deferred_pass(
-        jl, cfg, jframe, jpools, jorder, j["px"], j["py"], j["angle"],
-        j["floor_height"], j["sector_light"], j["mobj_state"],
+
+    def run(level, j, paint, idx, light, dist, sky, rgb):
+        jframe = jcam.build_seg_frame(level, cfg, j["px"], j["py"],
+                                      j["angle"], j["floor_height"],
+                                      j["sector_light"], j["timestamp"])
+        jorder = jcam.seg_order(level,
+                                jcam.traversal_rank(level, j["px"], j["py"]))
+        return jorder, jthings.deferred_pass(
+            level, cfg, jframe, jthings.pools_from_paint(paint), jorder,
+            j["px"], j["py"], j["angle"], j["floor_height"],
+            j["sector_light"], j["mobj_state"], idx, light, dist, sky,
+            rgb=rgb)
+
+    paint = {"clippool": tuple(jn(x) for x in out["clippool"]),
+             "midpool": tuple(jn(x) for x in out["midpool"]),
+             "cnt_clip": jn(out["cnt_clip"]), "cnt_mid": jn(out["cnt_mid"])}
+    jorder, (jidx, jlight, jdist, jsky, jaux) = jax.jit(run)(
+        jl, {k: jnp.asarray(v) for k, v in poses.items()}, paint,
         jn(out["idx"]), jn((ld >> 16) & 0xFF), jn(((ld & 0xFFFF) << 16) >> 16),
-        jn((ld & tp.LD_SKY) != 0), rgb=jn(out["rgb"]))
+        jn((ld & tp.LD_SKY) != 0), jn(out["rgb"]))
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
 
     idx, ld2, rgb, daux = tthings.deferred_pass(
         tl, cfg, frame, tthings.pools_from_paint(out), order, p["px"],
