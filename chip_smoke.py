@@ -20,7 +20,9 @@ with 4096 spread cameras at 320x200, each with the launch counts set to
   pool, no item cap).
 
 It checks their output against the CPU port on 16 cameras, then times
-them.  Any failed phase raises, so the script exits non-zero before its
+them; the e1m1-scale cell also runs the paint kernel's cost probe (the
+kernel built at PAINT_PROBE levels 1-3, see csrc/paint.cu) and times
+the paint and item kernels at 1 to 16 threads a column.  Any failed phase raises, so the script exits non-zero before its
 last line.  The last line is one JSON object naming the device; the
 line before it lists every kernel with its launches, error, times and
 bound.
@@ -50,6 +52,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 B = 4096
 T0 = time.perf_counter()
+# band heights the probe times the paint and item kernels at (at 200
+# rows: 1, 2, 4, 8 and 16 threads a column)
+BAND_SWEEP = (200, 100, 50, 25, 13)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -82,6 +87,22 @@ def spread_poses(t, n, seed=0):
         np.asarray([(p[0], p[1]) for p in poses], np.float32),
         np.asarray([p[2] for p in poses], np.float32),
     )
+
+
+def tall_atlas(level, ipool, rows=256):
+    """(level, ipool) for K2 at atlas_rows > 128: the level's column
+    atlas re-laid `rows` rows a column (each column's rows repeated) and
+    the item pool with every slot's picture height doubled, so the fold
+    reads atlas rows past 128."""
+    import torch
+
+    cols = level.atlas_cm.view(-1, level.atlas_rows)
+    reps = -(-rows // level.atlas_rows)
+    cm = cols.repeat(1, reps)[:, :rows].contiguous().view(-1)
+    ip = ipool.clone()
+    th = (ip[3] << 16) >> 16
+    ip[3] = (ip[3] & -65536) | (torch.clamp(th * 2, max=rows) & 0xFFFF)
+    return dataclasses.replace(level, atlas_cm=cm, atlas_rows=rows), ip
 
 
 def outputs_of(out: dict) -> dict:
@@ -234,17 +255,31 @@ class Smoke:
 
     # ---- each kernel against its plain version ------------------------------
     def compare_paint(self, eng, args, label):
+        """K1 against paint_reference: idx, ld, rgb, both counts and the
+        overflow exactly, and both pools in every slot below its column's
+        count (the kernel writes no slot past it; the plain version
+        zero-fills them, and nothing reads them)."""
+        import torch
+
         lvl, cfg = eng.level, eng.config
         got, ref, plain_ms = against_plain(
             lambda: outputs_of(self.paint.paint(lvl, cfg, *args)),
             lambda: outputs_of(self.paint.paint_reference(lvl, cfg, *args)))
+        for pool, cnt, K in (("midpool", "cnt_mid", cfg.mid_capacity),
+                             ("clippool", "cnt_clip", cfg.clip_capacity)):
+            below = (torch.arange(K, device=self.dev)[None, None, :]
+                     < ref[cnt][..., None])              # [B, W, K]
+            for k in [k for k in ref if k.startswith(pool)]:
+                got[k] = torch.where(below, got[k], 0)
+                ref[k] = torch.where(below, ref[k], 0)
         worst, diffs = differing({k: (got[k], ref[k]) for k in ref})
         log(f"paint {label}: differing elements per output {json.dumps(diffs)}")
         check(all(v == 0 for v in diffs.values()),
               f"paint {label}: kernel differs from paint_reference")
         log(f"  peak pool use per column: mid {got['cnt_mid'].max().item()} "
             f"of {cfg.mid_capacity}, clip {got['cnt_clip'].max().item()} "
-            f"of {cfg.clip_capacity}")
+            f"of {cfg.clip_capacity}; overflow "
+            f"{int(got['overflow'].sum())}")
         return worst, plain_ms
 
     def compare_frames(self, what, got, ref, bg_idx, label, detail):
@@ -325,7 +360,11 @@ class Smoke:
             eng.level, cfg, frame, pools, order, st.pos[:, 0], st.pos[:, 1],
             st.angle, st.floor_height, st.sector_light, st.mobj_state)
 
-    def check_items(self, eng, st, cfg, label):
+    def check_items(self, eng, st, cfg, label, variants=False):
+        """K2 on a state's paint result and item pool, with its clip pool;
+        with `variants` also without one (the words clipped beforehand,
+        as the JAX _kernel_kouter takes them) and on an atlas of 256 rows
+        a column (`tall_atlas`)."""
         from doomtpu_torch.render import things
 
         frame, order, args = self.stage_inputs(eng, st, cfg)
@@ -333,8 +372,18 @@ class Smoke:
         pools = things.pools_from_paint(out)
         ipool, icnt, _ = self.item_inputs(eng, st, frame, order, pools, cfg)
         bg = [out[k] for k in ("idx", "ld", "rgb")]
-        return self.compare_items(eng, cfg, ipool, icnt, bg, pools[0],
-                                  label)[0]
+        worst = self.compare_items(eng, cfg, ipool, icnt, bg, pools[0],
+                                   label)[0]
+        if variants:
+            words = ipool.clone()
+            words[0] = self.items.clipped_words(ipool, pools[0], cfg.height)
+            worst = max(worst, self.compare_items(
+                eng, cfg, words, icnt, bg, None, f"{label} clip=None")[0])
+            level, tall = tall_atlas(eng.level, ipool)
+            worst = max(worst, self.compare_items(
+                dataclasses.replace(eng, level=level), cfg, tall, icnt, bg,
+                pools[0], f"{label} atlas_rows={level.atlas_rows}")[0])
+        return worst
 
     def check_scan(self, eng, st, cfg, label):
         frame, order = self.frame_order(eng, st, cfg)
@@ -623,6 +672,62 @@ class Smoke:
         return ms, by
 
 
+def probe_paint(s: Smoke, lvl, cfg, args, full_ms: float) -> None:
+    """The paint kernel's cost split (the TPU probe
+    scripts/probe_paint_cost.py, on the card): the kernel built at
+    PAINT_PROBE levels 1-3 (csrc/paint.cu), each timed on the same
+    inputs as the full kernel (`full_ms`); then the full kernel at other
+    band heights (threads a column, paint.paint_tile)."""
+    phase("paint kernel cost probe")
+    split = {}
+    for n, what in ((1, "init and outputs only"),
+                    (2, "+ seg x-range checks"),
+                    (3, "+ occlusion and emit math, no painting")):
+        split[what] = event_ms(
+            lambda: s.paint.paint_probe(lvl, cfg, *args, n), 5)
+    split["full kernel"] = full_ms
+    log(f"paint cost probe at B={args[0].shape[0]}, "
+        f"{s.paint.paint_tile(cfg.height)} (columns, threads a column) "
+        "(CUDA events, ms): "
+        + json.dumps({k: round(v, 4) for k, v in split.items()})
+        + f"  [{s.card}]")
+    sweep = {}
+    for rows in BAND_SWEEP:
+        tile = s.paint.paint_tile(cfg.height, rows)
+        sweep[f"{tile}"] = (round(event_ms(
+            lambda: s.paint.paint_probe(lvl, cfg, *args, 4, rows), 5), 4),
+            s.paint.paint_blocks_per_sm(cfg.height, rows))
+    log(f"paint kernel by (columns, threads a column), band rows "
+        f"{BAND_SWEEP}: [ms (CUDA events), blocks an SM holds] "
+        f"{json.dumps(sweep)}  [{s.card}]")
+
+
+def sweep_items(s: Smoke, lvl, cfg, ipool, icnt, bg, clip) -> None:
+    """The item kernel at other band heights (items.items_tile), each on
+    fresh copies of the same frame."""
+    import torch
+
+    KC = clip["span"].shape[1]
+    sweep = {}
+    for rows in BAND_SWEEP:
+        tile = s.items.items_tile(cfg.height, cfg.item_capacity, KC, rows)
+        ms = []
+        for _ in range(4):
+            fresh = [x.clone() for x in bg]
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            s.items.launch_items(lvl, cfg, ipool, icnt, *fresh, clip, rows)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        sweep[f"{tile}"] = (round(sum(ms[1:]) / 3, 4),
+                            s.items.items_blocks_per_sm(
+                                cfg.height, cfg.item_capacity, KC, rows))
+    log(f"item kernel by (columns, threads a column), band rows "
+        f"{BAND_SWEEP}: [ms (CUDA events), blocks an SM holds] "
+        f"{json.dumps(sweep)}  [{s.card}]")
+
+
 def paint_cell(s: Smoke) -> dict:
     """e1m1-scale, paint-eligible: render_walls and render through K1
     and K2 (the walls-only and full-frame paths of the first slices)."""
@@ -666,6 +771,7 @@ def paint_cell(s: Smoke) -> dict:
         lvl, cfg, frame, order, sp.angle, px, py, sp.floor_height), 3)
     stage["paint kernel"] = event_ms(
         lambda: s.paint.paint(lvl, cfg, *args_full), 5)
+    probe_paint(s, lvl, cfg, args_full, stage["paint kernel"])
     out = s.paint.paint(lvl, cfg, *args_full)
     pools = things.pools_from_paint(out)
     stage["deferred pass (item pool)"] = event_ms(
@@ -695,6 +801,7 @@ def paint_cell(s: Smoke) -> dict:
             f"[{s.card}]")
     bg = [out[k] for k in ("idx", "ld", "rgb")]
     stage["item kernel"] = s.timed_items(e1, cfg, ipool, icnt, bg, clip)
+    sweep_items(s, lvl, cfg, ipool, icnt, bg, clip)
     stage["sort + unsort"] = event_ms(
         lambda: unsort_out((out["idx"], out["rgb"]), sort_state(state)[1]), 3)
     log(f"stages e1m1-scale at B={B} (CUDA events, ms): " + json.dumps(
@@ -724,7 +831,8 @@ def paint_cell(s: Smoke) -> dict:
     # words it reads of the active segs (16 of a row: all before the
     # pieces; 9 per active piece), the per-camera scalars and the tables
     # read once; the frame planes and counts written whole, the pools
-    # only in their occupied slots (nothing reads past a column's count).
+    # only in their occupied slots (the kernel writes no slot past a
+    # column's count, and nothing reads one).
     # Operations, counted loosely from above: ~40 per (column, visited
     # seg) and ~20 per pixel.
     nb = lambda t: t.numel() * t.element_size()
@@ -1072,7 +1180,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    libs = ("paint", "items", "scan", "itempass")
+    libs = ("paint", "items", "scan", "itempass", *build.VARIANTS)
     t0 = time.perf_counter()
     build.build_libraries(*libs)
     for name in libs:
@@ -1099,7 +1207,7 @@ def main() -> int:
                                     "demo B=8")[0]}
     err["items"] = max(s.check_items(
         demo, demo_st, RenderConfig(item_capacity=ki),
-        f"demo B=8 item_capacity={ki}") for ki in (8, 24))
+        f"demo B=8 item_capacity={ki}", variants=ki == 24) for ki in (8, 24))
     err["scan"] = max(s.check_scan(
         demo, demo_st, RenderConfig(span_capacity=k),
         f"demo B=8 span_capacity={k}") for k in (16, 4))
@@ -1147,6 +1255,16 @@ def main() -> int:
     err["itempass"] = max(err["itempass"], s.check_itempass(
         d1, st16, dataclasses.replace(cfg, max_visible_mobjs=256),
         "doom1-asset-scale B=16 max_visible_mobjs=256"))
+    # a tall screen and the widest the paint path takes, demo B=8
+    for w, h in ((320, 768), (1024, 200)):
+        cfg_s = RenderConfig(width=w, height=h, item_capacity=24)
+        eng_s = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1",
+                                          config=cfg_s, device=dev)
+        st_s = s.new_game(eng_s, 8, demo_poses)
+        err["paint"] = max(err["paint"], s.compare_paint(
+            eng_s, s.stage_inputs(eng_s, st_s)[2], f"demo {w}x{h} B=8")[0])
+        err["items"] = max(err["items"], s.check_items(
+            eng_s, st_s, cfg_s, f"demo {w}x{h} B=8", variants=True))
     kern_ms32 = event_ms(lambda: s.paint.paint(e1.level, cfg, *args32), 20)
     plain_ms32 = event_ms(
         lambda: s.paint.paint_reference(e1.level, cfg, *args32), 2)

@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each `csrc/<name>.cu` has a plain C interface and includes the shared
-`csrc/layout.cuh`.  At first use it is compiled by nvcc into
+`csrc/layout.cuh`; a library of `VARIANTS` is a source built with extra
+defines (the paint kernel's cost-probe levels).  At first use it is
+compiled by nvcc into
 `build/doomtpu_torch/` at the root of the checkout (a directory
 .gitignore lists) and loaded with ctypes; the library's file name
 carries a hash of the source, the headers and the flags, so an edited
@@ -48,13 +50,15 @@ _SIGNATURES = {
              _I, _I, _I, _I, _I, _I,            # W, H, KM, KC, pow2, twq
              _F, _F, _F, _F, _F, _F, _F, _F]    # half_w half_h inv_aspect wx_c
             #                                     eye inv_w inv_h inv_255
-            + [_P] * 10                         # idx ld rgb pidx pld mpool
-            #                                     cpool cnt_mid cnt_clip ovf
+            + [_I, _I]                          # tc, bands
+            + [_P] * 8                          # idx ld rgb mpool cpool
+            #                                     cnt_mid cnt_clip ovf
             + [_P],                             # stream
             _I,
         ),
         "doom_cuda_error_string": ([_I], _C.c_char_p),
         "doom_row_words": ([], _I),
+        "doom_paint_blocks_per_sm": ([_I, _I, _I], _I),
     },
     "items": {
         "doom_items": (
@@ -64,10 +68,12 @@ _SIGNATURES = {
             + [_P] * 7                          # clip span d2 lsx lsy lex
             #                                     ley, clip cnt
             + [_I, _I, _I, _I, _I, _F]          # B W H KI KC inv_255
+            + [_I, _I]                          # tc, bands
             + [_P, _P, _P, _P],                 # idx ld rgb stream
             _I,
         ),
         "doom_items_error_string": ([_I], _C.c_char_p),
+        "doom_items_blocks_per_sm": ([_I, _I, _I, _I, _I], _I),
     },
     "itempass": {
         "doom_itempass": (
@@ -93,6 +99,11 @@ _SIGNATURES = {
         "doom_row_words": ([], _I),
     },
 }
+
+# the cost probe's libraries: a kernel source built at a PAINT_PROBE level
+# (csrc/paint.cu), by library name -> (source, extra nvcc flags)
+VARIANTS = {f"paint_probe{n}": ("paint", (f"-DPAINT_PROBE={n}",))
+            for n in (1, 2, 3)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # per library: seconds from the start of its build_libraries call until
@@ -127,11 +138,16 @@ def _check_device():
         )
 
 
+def _source(name: str) -> tuple[str, tuple[str, ...]]:
+    return VARIANTS.get(name, (name, ()))
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    src, defines = _source(name)
+    h = hashlib.sha256((CSRC / f"{src}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -151,8 +167,10 @@ def build_libraries(*names: str) -> None:
     jobs = {}
     for name in todo:
         tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        src, defines = _source(name)
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp),
+             str(CSRC / f"{src}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         jobs[name] = (proc, tmp)
@@ -161,7 +179,7 @@ def build_libraries(*names: str) -> None:
         build_log[name] = proc.communicate()[0]
         build_seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on csrc/{name}.cu:\n{build_log[name]}")
+            failed.append(f"nvcc failed on {name}:\n{build_log[name]}")
         else:
             os.replace(tmp, _lib_path(name))
     if failed:
@@ -176,13 +194,14 @@ def load_library(name: str) -> ctypes.CDLL:
     _check_device()
     build_libraries(name)
     lib = ctypes.CDLL(str(_lib_path(name)))
-    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+    src = _source(name)[0]
+    for fn, (argtypes, restype) in _SIGNATURES[src].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = restype
-    if "doom_row_words" in _SIGNATURES[name] and lib.doom_row_words() != NR:
+    if "doom_row_words" in _SIGNATURES[src] and lib.doom_row_words() != NR:
         raise RuntimeError(
-            f"csrc/{name}.cu reads {lib.doom_row_words()}-word seg rows; "
+            f"csrc/{src}.cu reads {lib.doom_row_words()}-word seg rows; "
             f"ops/layout.py builds {NR}-word rows"
         )
     _loaded[name] = lib

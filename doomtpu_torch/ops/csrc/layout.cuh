@@ -117,7 +117,7 @@ __device__ __forceinline__ void clip_fold(
   }
 }
 
-// The item kernels' last pass over one column's rows [ylo, yhi]: a
+// The item-pass kernel's last pass over one column's rows [ylo, yhi]: a
 // pixel an item wrote holds idx = -2 - texel (the paint frame's idx is
 // -1 or a texel).  Shade it (bitmap_render.rs:190-208: palette, light
 // diminish; light / 255 is the multiply by inv_255 = f32(1 / 255) that

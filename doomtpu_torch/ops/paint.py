@@ -305,26 +305,93 @@ def _result(o: dict) -> dict:
     }
 
 
+# shared memory one block may use on Hopper (227 KB), and the threads of
+# a paint block (csrc/paint.cu's MAX_THREADS)
+SMEM_BLOCK_BYTES = 232_448
+MAX_BLOCK_THREADS = 256
+# rows a paint thread's band holds: fewer rows, more threads a column
+# (band 0 walks, every band paints); timed on the card (PERF.md)
+BAND_ROWS = 25
+
+# csrc/paint.cu's LIST (the tile's seg list), TERMS (words a (seg,
+# column) term) and JOBS (paint jobs of a seg and column, 2 words each)
+LIST_ROWS, SEG_TERMS, SEG_JOBS = 256, 6, 4
+
+
+def paint_smem_bytes(tc: int, bands: int, H: int) -> int:
+    """Shared memory of a paint block (csrc/paint.cu): the tile's frame
+    (an ld word and a 16-bit texel a pixel), its seg list, the terms and
+    paint jobs of `bands` segs a column, two flags a column and two
+    counters."""
+    pixels = tc * H
+    return 4 * (pixels + (pixels + 1) // 2 + LIST_ROWS
+                + (SEG_TERMS + 2 * SEG_JOBS) * bands * tc + 2 * tc + 2)
+
+
+def paint_tile(H: int, band_rows: int = BAND_ROWS) -> tuple[int, int]:
+    """(TC, R) of a paint block at screen height H: TC columns, 32 while
+    the block's shared memory (`paint_smem_bytes`) fits the
+    SMEM_BLOCK_BYTES a block may use, else as many as fit; R threads a
+    column, each painting a band of about `band_rows` rows,
+    TC * R <= MAX_BLOCK_THREADS."""
+    for tc in range(32, 0, -1):
+        bands = max(1, min(-(-H // band_rows), MAX_BLOCK_THREADS // tc))
+        if paint_smem_bytes(tc, bands, H) <= SMEM_BLOCK_BYTES:
+            return tc, bands
+    raise ValueError(f"paint: height {H} leaves no column of its frame "
+                     f"within {SMEM_BLOCK_BYTES} bytes")
+
+
+def paint_blocks_per_sm(H: int, band_rows: int = BAND_ROWS) -> int:
+    """Paint blocks one SM of this card holds at height H (the CUDA
+    occupancy calculator, from the built kernel's registers and the
+    block's shared memory)."""
+    from doomtpu_torch.ops.build import load_library
+
+    tc, bands = paint_tile(H, band_rows)
+    return load_library("paint").doom_paint_blocks_per_sm(tc, bands, H)
+
+
 def paint(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
           cami) -> dict:
     """Paint B cameras.  CUDA tensors launch the kernel (csrc/paint.cu);
-    CPU tensors run `paint_reference`.  Anything else raises."""
+    CPU tensors run `paint_reference`.  Anything else raises.  The
+    kernel leaves pool slots past a column's count unwritten (the plain
+    version zero-fills them); nothing reads them."""
     _check_inputs(level, cfg, rows, scnt, camf, cami)
     if rows.device.type == "cpu":
         return paint_reference(level, cfg, rows, scnt, camf, cami)
     if rows.device.type != "cuda":
         raise ValueError(f"paint: no kernel for device {rows.device}")
+    out = _launch("paint", BAND_ROWS, level, cfg, rows, scnt, camf, cami)
+    paint.launches += 1
+    return out
+
+
+def paint_probe(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
+                cami, probe: int, band_rows: int = BAND_ROWS) -> dict:
+    """The paint kernel for the cost probe only (CUDA tensors; not
+    counted as a launch of `paint`): PAINT_PROBE level 1 inits and
+    writes the outputs, 2 adds the seg x-range checks, 3 the occlusion
+    and emit math without painting (csrc/paint.cu), 4 is the full
+    kernel; `band_rows` sets its threads a column (`paint_tile`).  Only
+    level 4's outputs are the paint's."""
+    _check_inputs(level, cfg, rows, scnt, camf, cami)
+    if rows.device.type != "cuda" or probe not in (1, 2, 3, 4):
+        raise ValueError(f"paint_probe: level {probe} on {rows.device}")
+    lib = "paint" if probe == 4 else f"paint_probe{probe}"
+    return _launch(lib, band_rows, level, cfg, rows, scnt, camf, cami)
+
+
+def _launch(lib_name, band_rows, level, cfg, rows, scnt, camf, cami) -> dict:
     from doomtpu_torch.ops.build import load_library
 
     B, G = rows.shape[:2]
     W, H, KM, KC = cfg.width, cfg.height, cfg.mid_capacity, cfg.clip_capacity
-    if W > 1024:
-        raise ValueError(f"paint: width {W} > 1024 (one thread per column "
-                         "in one block)")
-    lib = load_library("paint")
+    tc, bands = paint_tile(H, band_rows)
+    lib = load_library(lib_name)
     o = _alloc_outputs(B, W, H, KM, KC, rows.device)
-    pidx = torch.empty((B, H, W), dtype=I32, device=rows.device)
-    pld = torch.empty_like(pidx)
+    o["overflow"].zero_()          # the tiles of a camera add into it
     TH, TW = level.tex_pixels.shape[1:]
     twq = _texel_columns(level)
     k = _consts(cfg)
@@ -336,15 +403,14 @@ def paint(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
         p(level.sky_pixels), p(level.palette_packed),
         W, H, KM, KC, int(level.tex_sizes_pow2), twq,
         k["half_w"], k["half_h"], k["inv_aspect"], k["wx_c"], k["eye"],
-        k["inv_w"], k["inv_h"], k["inv_255"],
-        p(o["idx"]), p(o["ld"]), p(o["rgb"]), p(pidx), p(pld),
+        k["inv_w"], k["inv_h"], k["inv_255"], tc, bands,
+        p(o["idx"]), p(o["ld"]), p(o["rgb"]),
         p(o["mpool"]), p(o["cpool"]), p(o["cnt_mid"]), p(o["cnt_clip"]),
         p(o["overflow"]), ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"paint kernel launch failed: CUDA error {err} "
                            f"({lib.doom_cuda_error_string(err).decode()})")
-    paint.launches += 1
     return _result(o)
 
 

@@ -28,8 +28,10 @@ from doomtpu_torch.render.jmath import I32
 def paint_available(level: DeviceLevel, cfg: RenderConfig) -> bool:
     """The paint path takes every level whose wall-piece textures fit
     256x128 and are opaque, with an opaque sky, at any batch or height,
-    up to 1024 columns (one thread per column in one block).  Every
-    other level or screen takes the scan + resolve pipeline."""
+    up to 1024 columns.  The tiled paint kernel takes any width, but the
+    pipeline decides the frame (the scan path packs rows in 8 bits), so
+    this bound stays where the port first set it.  Every other level or
+    screen takes the scan + resolve pipeline."""
     return level.paint_ok and cfg.width <= 1024
 
 

@@ -9,8 +9,9 @@ JAX; the repo's conftest imports JAX, so leave it out there:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Without a card every test skips.  Tolerance: exact equality on every
-output (for the wall scan's pool: every slot below a column's count;
-the kernel does not write the slots past it, which nothing reads).
+output (for the pools of the paint kernel and the wall scan: every slot
+below a column's count; the kernels do not write the slots past it,
+which nothing reads, tests/test_torch_pools.py).
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from chip_smoke import tall_atlas  # noqa: E402
 from doomtpu_torch.wad import synth  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.config import RenderConfig  # noqa: E402
@@ -67,26 +69,96 @@ def _outputs(out) -> dict:
     return named
 
 
-def test_paint_kernel_equals_plain_version(engines):
-    eng, _ = engines
+def _below_count(out) -> dict:
+    """_outputs with every pool slot at or past its column's count
+    zeroed (the paint kernel does not write those)."""
+    named = _outputs(out)
+    for pool, cnt in (("midpool", "cnt_mid"), ("clippool", "cnt_clip")):
+        K = out[pool][0].shape[2]
+        past = (torch.arange(K, device=out[cnt].device)
+                >= out[cnt][..., None])
+        for i in range(len(out[pool])):
+            named[f"{pool}{i}"] = torch.where(past, 0, named[f"{pool}{i}"])
+    return named
+
+
+def _demo_paint(eng, cfg):
+    """Paint inputs of the demo views at B=8."""
     views = VIEWS * 2
     st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
                 np.asarray([v[2] for v in views], np.float32))
     px, py = st.pos[:, 0], st.pos[:, 1]
-    frame = cam.build_seg_frame(eng.level, eng.config, px, py, st.angle,
+    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
                                 st.floor_height, st.sector_light,
                                 st.timestamp)
     order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
-    args = tp.build_inputs(eng.level, eng.config, frame, order, st.angle,
+    args = tp.build_inputs(eng.level, cfg, frame, order, st.angle,
                            px, py, st.floor_height)
+    return st, frame, order, args
+
+
+def test_paint_kernel_equals_plain_version(engines):
+    eng, _ = engines
+    _, _, _, args = _demo_paint(eng, eng.config)
     before = tp.paint.launches
-    got = _outputs(tp.paint(eng.level, eng.config, *args))
+    got = _below_count(tp.paint(eng.level, eng.config, *args))
     torch.cuda.synchronize()
     assert tp.paint.launches == before + 1
-    want = _outputs(tp.paint_reference(eng.level, eng.config, *args))
+    want = _below_count(tp.paint_reference(eng.level, eng.config, *args))
     for k, v in got.items():
         assert v.is_cuda, k
         assert torch.equal(v, want[k]), k
+
+
+SCREENS = [(320, 768), (1024, 200)]
+
+
+@pytest.fixture(scope="module", params=SCREENS, ids=lambda s: "%dx%d" % s)
+def screen(cuda, request):
+    """The demo map on a tall screen and on the widest the paint path
+    takes, its views at B=8 painted by the kernel."""
+    w, h = request.param
+    cfg = RenderConfig(width=w, height=h, item_capacity=24)
+    eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", config=cfg,
+                                    device=cuda)
+    st, frame, order, args = _demo_paint(eng, cfg)
+    return eng, cfg, st, frame, order, args
+
+
+def test_paint_kernel_on_tall_and_wide_screens(screen):
+    eng, cfg, *_, args = screen
+    got = _below_count(tp.paint(eng.level, cfg, *args))
+    want = _below_count(tp.paint_reference(eng.level, cfg, *args))
+    for k, v in got.items():
+        assert torch.equal(v, want[k]), k
+    assert int(want["cnt_clip"].max()) > 0
+
+
+@pytest.mark.parametrize("case", ["clip", "clip=None", "atlas_rows=256"])
+def test_item_kernel_on_tall_and_wide_screens(screen, case):
+    """K2 with the clip pool, without one (the words clipped beforehand,
+    as the JAX _kernel_kouter takes them) and on an atlas of 256 rows a
+    column."""
+    eng, cfg, st, frame, order, args = screen
+    out = tp.paint(eng.level, cfg, *args)
+    pools = things.pools_from_paint(out)
+    ipool, icnt, _ = things.item_pool(
+        eng.level, cfg, frame, pools, order, st.pos[:, 0], st.pos[:, 1],
+        st.angle, st.floor_height, st.sector_light, st.mobj_state)
+    level, clip = eng.level, pools[0]
+    if case == "clip=None":
+        ipool = ipool.clone()
+        ipool[0] = ti.clipped_words(ipool, clip, cfg.height)
+        clip = None
+    elif case == "atlas_rows=256":
+        level, ipool = tall_atlas(level, ipool)
+    bg = lambda: [out[k].clone() for k in ("idx", "ld", "rgb")]
+    got = ti.composite_items(level, cfg, ipool, icnt, *bg(), clip=clip)
+    want = ti.composite_items_reference(level, cfg, ipool, icnt, *bg(),
+                                        clip=clip)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] != out["idx"]).sum()) > 0     # some item drew
 
 
 def _spread(t, n, seed=0):

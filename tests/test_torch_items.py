@@ -279,3 +279,17 @@ def test_item_pool_chunks_agree(scene, cfg):
         assert torch.equal(one[1], icnt[b:b + 1])
         for k in ("items_dropped", "item_overflow", "item_peak"):
             assert torch.equal(one[2][k], daux[k][b:b + 1]), k
+
+
+@pytest.mark.parametrize("ki, kc", [(8, 0), (24, 64)])
+def test_items_tile_fits_every_height(ki, kc):
+    """The item kernel's tile (ops/items.items_tile): at every height up
+    to 1200 rows, at least one column whose marks, slot rows and staged
+    clip records fit the shared memory a Hopper block may use, within
+    the block's threads; 32 columns at 200 rows."""
+    for H in range(1, 1201):
+        tc, bands = ti.items_tile(H, ki, kc)
+        assert tc >= 1 and bands >= 1, H
+        assert 4 * tc * (H + 2 * ki + 5 * kc) <= tp.SMEM_BLOCK_BYTES, H
+        assert tc * bands <= ti.MAX_BLOCK_THREADS, H
+    assert ti.items_tile(200, ki, kc)[0] >= 32

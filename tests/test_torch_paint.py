@@ -131,3 +131,19 @@ def test_wrapper_takes_plain_version_on_cpu_only(setup, config):
         tp.render_paint(tl, dataclasses.replace(config, paint_live_capacity=16),
                         frame, order, pa, px, py, fh)
 
+
+
+def test_paint_tile_fits_every_height():
+    """The paint kernel's tile (ops/paint.paint_tile): at every height up
+    to 1200 rows, at least one column whose frame (six bytes a pixel),
+    seg list, terms and jobs fit the shared memory a Hopper block may
+    use, within the block's threads; 32 columns at the bench's 200
+    rows."""
+    assert tp.SMEM_BLOCK_BYTES == 227 * 1024
+    for H in range(1, 1201):
+        tc, bands = tp.paint_tile(H)
+        assert tc >= 1 and bands >= 1, H
+        assert 6 * H * tc < tp.paint_smem_bytes(tc, bands, H), H
+        assert tp.paint_smem_bytes(tc, bands, H) <= tp.SMEM_BLOCK_BYTES, H
+        assert tc * bands <= tp.MAX_BLOCK_THREADS, H
+    assert tp.paint_tile(200)[0] >= 32
