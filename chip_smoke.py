@@ -3,15 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all started together), holds each kernel against its
-plain PyTorch version on the card, then drives the port's main paths
-with 4096 spread cameras at 320x200, each with the launch counts set to
-0 just before it and read just after:
+Builds the port's CUDA kernels and their cost probes from the sources
+in this checkout (one nvcc per source, all started together) and
+reports each build's resources (registers, spills, shared memory,
+blocks an SM; a spill fails the run).  Then it holds each kernel
+against its plain PyTorch version on the card (the paint kernel also
+under a live-seg cap that drops segs; every kernel at 320x200, 320x768
+and 1024x200; the item kernel also on a WAD whose masked mid is 256
+rows tall, rendered against the CPU port), and drives the port's main
+paths with 4096 spread cameras at 320x200, the paint path asked for
+(`use_pallas_paint=True`), each with the launch counts set to 0 just
+before it and read just after, so a path that took another pipeline
+fails:
 
 - e1m1-scale (paint-eligible): DoomEngine.render_walls (walls, planes,
   sky through the paint kernel) and DoomEngine.render (the full frame:
   the item kernel too);
+- e1m1-scale under a live-seg cap set from the measured live peak:
+  render through the paint kernel with its drop mask, live_dropped 0,
+  the uncapped frames;
 - e1m1-scale-masked (GRATE on some solid walls, so the paint kernel
   does not take it): render_walls and render through the wall-scan
   kernel, the resolve and the shade, then the item kernel;
@@ -20,12 +30,14 @@ with 4096 spread cameras at 320x200, each with the launch counts set to
   pool, no item cap).
 
 It checks their output against the CPU port on 16 cameras, then times
-them; the e1m1-scale cell also runs the paint kernel's cost probe (the
-kernel built at PAINT_PROBE levels 1-3, see csrc/paint.cu) and times
-the paint and item kernels at 1 to 16 threads a column.  Any failed phase raises, so the script exits non-zero before its
-last line.  The last line is one JSON object naming the device; the
-line before it lists every kernel with its launches, error, times and
-bound.
+them.  The cells also run the cost probes (the paint, item-pass and
+wall-scan kernels built at PAINT_PROBE, ITEMPASS_PROBE and SCAN_PROBE
+levels, see their sources) and time the paint, item and item-pass
+kernels at 1 to 16 threads a column and the wall scan at 32 to 128
+columns a block.  Any failed phase raises, so the script exits non-zero
+before its last line.  The last line is one JSON object naming the
+device; the line before it lists every kernel with its launches, error,
+times and bound, and the one before that the probe builds' resources.
 
 It needs a CUDA card and fails without one: nothing moves to the CPU.
 
@@ -103,6 +115,41 @@ def tall_atlas(level, ipool, rows=256):
     th = (ip[3] << 16) >> 16
     ip[3] = (ip[3] & -65536) | (torch.clamp(th * 2, max=rows) & 0xFFFF)
     return dataclasses.replace(level, atlas_cm=cm, atlas_rows=rows), ip
+
+
+def tall_mid_wad(synth, builder, rows_128_255=0) -> bytes:
+    """Two rooms 320 high, the portal between them hung with TALLMID: a
+    64x256 masked texture (grate, step, then the patch `rows_128_255`
+    over rows 128-255, then grate) from TEXTURE2, so the level's column
+    atlas holds 256 rows; a barrel and a lamp.  Built with the given
+    package's synth and builder modules (the port's here, either
+    package's in tests/test_torch_faults.py)."""
+    rooms = [
+        synth.RoomSpec(0, 0, 512, 512, floor_h=0, ceil_h=320, light=200,
+                       mid_tex="TALLMID"),
+        synth.RoomSpec(512, 0, 1024, 512, floor_h=0, ceil_h=320, light=160,
+                       floor_flat="FLOOR2"),
+    ]
+    things = [synth.ThingSpec(96, 256, 0, 1),
+              synth.ThingSpec(700, 200, 180, 2035),
+              synth.ThingSpec(400, 320, 90, 2028)]
+    b = builder.WadBuilder("IWAD")
+    synth.standard_assets(b)
+    # PNAMES: 0 PWALL, 1 PSTEP, 2 PGRATE, 4 PWIDE
+    b.add("TEXTURE2", builder.encode_texture1([
+        {"name": "TALLMID", "width": 64, "height": 256,
+         "patches": [(0, 0, 2), (0, 64, 1), (0, 128, rows_128_255),
+                     (0, 192, 2)]},
+    ]))
+    lb = synth.LevelBuilder(rooms, things)
+    lb.build_walls()
+    lb.build_bsp()
+    lumps = lb.lumps()
+    b.add("E1M1")
+    for name in ("THINGS", "LINEDEFS", "SIDEDEFS", "VERTEXES", "SEGS",
+                 "SSECTORS", "NODES", "SECTORS", "REJECT", "BLOCKMAP"):
+        b.add(name, lumps[name])
+    return b.build()
 
 
 def outputs_of(out: dict) -> dict:
@@ -254,17 +301,19 @@ class Smoke:
         return frame, order, args
 
     # ---- each kernel against its plain version ------------------------------
-    def compare_paint(self, eng, args, label):
+    def compare_paint(self, eng, args, label, drop=None):
         """K1 against paint_reference: idx, ld, rgb, both counts and the
         overflow exactly, and both pools in every slot below its column's
         count (the kernel writes no slot past it; the plain version
-        zero-fills them, and nothing reads them)."""
+        zero-fills them, and nothing reads them).  `drop`: a live-cap
+        drop mask (paint.live_drop) both take."""
         import torch
 
         lvl, cfg = eng.level, eng.config
         got, ref, plain_ms = against_plain(
-            lambda: outputs_of(self.paint.paint(lvl, cfg, *args)),
-            lambda: outputs_of(self.paint.paint_reference(lvl, cfg, *args)))
+            lambda: outputs_of(self.paint.paint(lvl, cfg, *args, drop)),
+            lambda: outputs_of(self.paint.paint_reference(lvl, cfg, *args,
+                                                          drop)))
         for pool, cnt, K in (("midpool", "cnt_mid", cfg.mid_capacity),
                              ("clippool", "cnt_clip", cfg.clip_capacity)):
             below = (torch.arange(K, device=self.dev)[None, None, :]
@@ -672,6 +721,45 @@ class Smoke:
         return ms, by
 
 
+def tall_mid_cell(s: Smoke) -> int:
+    """The WAD of `tall_mid_wad` (a masked mid 256 rows tall, so the
+    column atlas holds 256 rows) at 320x200, 16 spread poses: render
+    through K2 on the card (the level leaves the paint path: its sky's
+    mask is padded to 256 rows) against the CPU port, whose plain
+    version tests/test_torch_faults.py holds to the JAX package there.
+    Returns the worst difference (0)."""
+    import torch
+
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.wad import builder, synth
+
+    cfg = RenderConfig(width=320, height=200, span_capacity=64,
+                       mid_capacity=40, clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True)
+    wad = tall_mid_wad(synth, builder)
+    gpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=s.dev)
+    cpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu")
+    check(gpu.level.atlas_rows == 256, "the tall mid's atlas is not 256 rows")
+    n, what = 16, "render tall-mid (atlas_rows 256) B=16"
+    st = s.new_game(gpu, n)
+    s.zero_counts()
+    idx, rgb = gpu.render(st)
+    torch.cuda.synchronize()
+    got = s.counts()
+    log(f"{what}: launches {got}")
+    check(got["items"] == 1 and got["itempass"] == 0,
+          f"{what}: the item kernel did not run once")
+    s.against_cpu(idx, rgb, cpu.render, st.map(lambda x: x.cpu()),
+                  torch.arange(n, device=s.dev), what)
+    counters = gpu.render_counters(st)
+    check(set(counters.values()) == {0}, f"{what}: counters {counters}")
+    drawn = int((gpu.render_walls(st)[0] != idx).sum())
+    log(f"{what}: pixels the items changed {drawn}; counters {counters}")
+    check(drawn > 0, f"{what}: no item drew anything")
+    return 0
+
+
 def probe_paint(s: Smoke, lvl, cfg, args, full_ms: float) -> None:
     """The paint kernel's cost split (the TPU probe
     scripts/probe_paint_cost.py, on the card): the kernel built at
@@ -700,6 +788,61 @@ def probe_paint(s: Smoke, lvl, cfg, args, full_ms: float) -> None:
     log(f"paint kernel by (columns, threads a column), band rows "
         f"{BAND_SWEEP}: [ms (CUDA events), blocks an SM holds] "
         f"{json.dumps(sweep)}  [{s.card}]")
+
+
+def probe_itempass(s: Smoke, lvl, cfg, pack, out, full_ms: float) -> None:
+    """The item-pass kernel's cost split: the kernel built at
+    ITEMPASS_PROBE levels 1-3 (csrc/itempass.cu), each timed on the same
+    inputs as the full kernel (`full_ms`); then the full kernel at other
+    band heights (threads a column, itempass.itempass_tile).  The kernel
+    never reads the frame it writes, so repeated calls on one copy time
+    the same work."""
+    phase("item-pass kernel cost probe")
+    ip = s.itempass
+    KC, KM = cfg.clip_capacity, cfg.mid_capacity
+    split = {}
+    for n, what in ((1, "cull and staging only"),
+                    (2, "+ (item, column) terms"),
+                    (3, "+ fold into the marks, no write")):
+        split[what] = event_ms(
+            lambda: ip.item_pass_probe(lvl, cfg, pack, out, n), 5)
+    split["full kernel"] = full_ms
+    log(f"itempass cost probe at B={out['idx'].shape[0]}, "
+        f"{ip.itempass_tile(cfg.height, KC, KM)} (columns, threads a "
+        "column) (CUDA events, ms): "
+        + json.dumps({k: round(v, 4) for k, v in split.items()})
+        + f"  [{s.card}]")
+    sweep = {}
+    for rows in BAND_SWEEP:
+        tile = ip.itempass_tile(cfg.height, KC, KM, rows)
+        sweep[f"{tile}"] = (round(event_ms(
+            lambda: ip.item_pass_probe(lvl, cfg, pack, out, 4, rows), 5), 4),
+            ip.itempass_blocks_per_sm(cfg.height, KC, KM, rows))
+    log(f"item-pass kernel by (columns, threads a column), band rows "
+        f"{BAND_SWEEP}: [ms (CUDA events), blocks an SM holds] "
+        f"{json.dumps(sweep)}  [{s.card}]")
+
+
+def probe_scan(s: Smoke, lvl, cfg, rows, scnt, full_ms: float) -> None:
+    """The wall-scan kernel's cost split: the kernel built at SCAN_PROBE
+    levels 1-2 (csrc/scan.cu), each timed on the same inputs as the full
+    kernel (`full_ms`); then the full kernel at other tile widths."""
+    phase("wall-scan kernel cost probe")
+    split = {}
+    for n, what in ((1, "lists and staging only"),
+                    (2, "+ walk and records, not stored")):
+        split[what] = event_ms(
+            lambda: s.scan.scan_probe(lvl, cfg, rows, scnt, n), 5)
+    split["full kernel"] = full_ms
+    log(f"scan cost probe at B={rows.shape[0]}, {s.scan.SCAN_COLUMNS} "
+        "columns a block (CUDA events, ms): "
+        + json.dumps({k: round(v, 4) for k, v in split.items()})
+        + f"  [{s.card}]")
+    sweep = {tc: (round(event_ms(lambda: s.scan.launch_scan(
+        lvl, cfg, rows, scnt, tc), 5), 4), s.scan.scan_blocks_per_sm(tc))
+        for tc in (32, 64, 96, 128)}
+    log(f"wall-scan kernel by columns a block: [ms (CUDA events), blocks "
+        f"an SM holds] {json.dumps(sweep)}  [{s.card}]")
 
 
 def sweep_items(s: Smoke, lvl, cfg, ipool, icnt, bg, clip) -> None:
@@ -745,10 +888,12 @@ def paint_cell(s: Smoke) -> dict:
     # item 8): this script's own config, the library defaults stay as
     # they are.  Item capacity 24 is the TPU bench's calibrated value.
     cfg = RenderConfig(width=320, height=200, mid_capacity=40,
-                       clip_capacity=64, item_capacity=24)
+                       clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True)
     log(f"config: {cfg.width}x{cfg.height} mid_capacity={cfg.mid_capacity} "
         f"clip_capacity={cfg.clip_capacity} item_capacity={cfg.item_capacity} "
-        f"render_chunk={cfg.render_chunk} camera_sort={cfg.camera_sort}")
+        f"render_chunk={cfg.render_chunk} camera_sort={cfg.camera_sort} "
+        f"use_pallas_paint={cfg.use_pallas_paint}")
     e1 = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1", config=cfg,
                                    device=s.dev)
     check(e1.level.paint_ok, "e1m1-scale is not paint-eligible")
@@ -883,7 +1028,8 @@ def scan_cell(s: Smoke) -> dict:
     phase("e1m1-scale-masked: the scan + resolve pipeline")
     wad = synth.e1m1_scale_masked_wad()
     cfg = RenderConfig(width=320, height=200, span_capacity=256,
-                       mid_capacity=40, clip_capacity=64, item_capacity=24)
+                       mid_capacity=40, clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # GRATE on solid walls
         eng = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=s.dev)
@@ -924,6 +1070,7 @@ def scan_cell(s: Smoke) -> dict:
     rows, scnt = s.paint.build_rows(lvl, frame, order)
     stage["wall-scan kernel"] = event_ms(
         lambda: s.scan.scan(lvl, cfg, rows, scnt), 5)
+    probe_scan(s, lvl, cfg, rows, scnt, stage["wall-scan kernel"])
     pool, cnt, _ = walls.wall_scan(lvl, cfg, frame, order)
     resolve = lambda: res.resolve_frame(lvl, cfg, frame, pool, cnt, px, py,
                                         sp.angle, sp.floor_height)
@@ -992,6 +1139,52 @@ def scan_cell(s: Smoke) -> dict:
     }
 
 
+def livecap_cell(s: Smoke, paint_ms: float) -> None:
+    """e1m1-scale render under a live-seg cap, per-camera lists (as
+    bench.py runs the JAX package, bench.py:89-91), the cap calibrated
+    by hand from the measured per-camera live peak of the 4096 poses as
+    JAX calibrate.py:308 rounds it (round_up(peak + 1, 32)): K1 (with
+    its drop mask, all clear) and K2, live_dropped 0, the same frames as
+    the paint cell's uncapped render, and K1 timed against the uncapped
+    kernel's `paint_ms`."""
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.render.camsort import sort_state
+    from doomtpu_torch.wad import synth
+
+    phase("e1m1-scale: the paint path under a live-seg cap")
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True, paint_percam_compact=True)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=s.dev)
+    state = s.new_game(eng, B)
+    sp, _ = sort_state(state)
+    _, order, args = s.stage_inputs(eng, sp)
+    _, _, cnt = s.paint.live_lists(cfg, args[0], args[1], order)
+    peak = int(cnt.max())
+    cfg = dataclasses.replace(cfg, paint_live_capacity=-(-(peak + 1) // 32)
+                              * 32)
+    log(f"live segs per (camera, 128-column block): peak {peak}, mean "
+        f"{cnt.float().mean().item():.2f} of {eng.level.num_segs} segs; "
+        f"paint_live_capacity {cfg.paint_live_capacity}, per camera")
+    eng = dataclasses.replace(eng, config=cfg)
+    cpu_eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                        config=cfg, device="cpu")
+    s.main_paths(eng, cpu_eng, state, cfg, "e1m1-scale live cap", "paint",
+                 with_walls=False)
+    check(s.checksums["render e1m1-scale live cap"]
+          == s.checksums["render e1m1-scale"],
+          "the capped render's frames differ from the uncapped render's")
+    drop, dropped = s.paint.live_drop(cfg, args[0], args[1], order)
+    check(int(dropped) == 0 and not bool(drop.any()),
+          f"the calibrated cap drops {int(dropped)} live segs")
+    capped_ms = event_ms(lambda: s.paint.paint(eng.level, cfg, *args, drop),
+                         5)
+    log(f"paint at B={B} under the cap (drop mask read, all clear): "
+        f"{capped_ms:.4f} ms against {paint_ms:.4f} ms uncapped  [{s.card}]")
+
+
 def itempass_cell(s: Smoke) -> dict:
     """e1m1-scale with use_item_pass_kernel: render through K1 and K3,
     every selected item drawn (no item pool, no item cap).  The same map,
@@ -1009,7 +1202,8 @@ def itempass_cell(s: Smoke) -> dict:
 
     phase("e1m1-scale: the item pass")
     cfg = RenderConfig(width=320, height=200, mid_capacity=40,
-                       clip_capacity=64, use_item_pass_kernel=True)
+                       clip_capacity=64, use_item_pass_kernel=True,
+                       use_pallas_paint=True)
     log(f"config: {cfg.width}x{cfg.height} mid_capacity={cfg.mid_capacity} "
         f"clip_capacity={cfg.clip_capacity} use_item_pass_kernel="
         f"{cfg.use_item_pass_kernel} (item_capacity {cfg.item_capacity} "
@@ -1048,6 +1242,7 @@ def itempass_cell(s: Smoke) -> dict:
     stage["item pack"] = event_ms(lambda: things.item_pack(*pack_args), 3)
     pack, _ = things.item_pack(*pack_args)
     stage["item-pass kernel"] = s.timed_itempass(eng, cfg, pack, out)
+    probe_itempass(s, lvl, cfg, pack, s.fresh(out), stage["item-pass kernel"])
     stage["sort + unsort"] = event_ms(
         lambda: unsort_out((out["idx"], out["rgb"]), sort_state(state)[1]), 3)
     log(f"stages e1m1-scale item pass at B={B} (CUDA events, ms): "
@@ -1063,6 +1258,59 @@ def itempass_cell(s: Smoke) -> dict:
     return {"itempass": {"launches": launches["itempass"], "max_abs_err": err,
                          "ms": stage["item-pass kernel"], "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}}
+
+
+def resource_report(s: Smoke, libs) -> dict:
+    """The resources of every kernel library built (the TPU probe
+    scripts/probe_mosaic_layout.py asked which layouts Mosaic takes; on
+    the card the question is resource legality): from nvcc's -Xptxas -v
+    report, each kernel's registers a thread, spill stores and spill
+    loads and static shared memory; the dynamic shared memory a block
+    takes at the main path's launch (320x200, pools mid 40 / clip 64 /
+    item 24) and the blocks an SM then holds (the CUDA occupancy
+    calculator).  Any spill fails the run."""
+    import re
+
+    from doomtpu_torch.ops import build
+
+    phase("resources of every kernel library")
+    H, KM, KC, KI = 200, 40, 64, 24
+    p, it, ip, sc = s.paint, s.items, s.itempass, s.scan
+    launch = {
+        "paint": (lambda: p.paint_smem_bytes(*p.paint_tile(H), H),
+                  lambda lib: p.paint_blocks_per_sm(H, lib=lib)),
+        "items": (lambda: it.items_smem_bytes(it.items_tile(H, KI, KC)[0],
+                                              H, KI, KC),
+                  lambda lib: it.items_blocks_per_sm(H, KI, KC)),
+        "itempass": (lambda: ip.itempass_smem_bytes(
+                         *ip.itempass_tile(H, KC, KM), H, KC, KM),
+                     lambda lib: ip.itempass_blocks_per_sm(H, KC, KM,
+                                                           lib=lib)),
+        "scan": (lambda: 0, lambda lib: sc.scan_blocks_per_sm(lib=lib)),
+    }
+    report = {}
+    for name in libs:
+        src = build.VARIANTS.get(name, (name,))[0]
+        funcs = build.ptxas_resources(build.nvcc_output(name))
+        kernels = {k: v for k, v in funcs.items() if "registers" in v}
+        check(len(kernels) == 1, f"{name}: ptxas reported kernels "
+              f"{sorted(kernels)}")
+        (mangled, r), = kernels.items()
+        spills = {f: (v.get("spill_stores", 0), v.get("spill_loads", 0))
+                  for f, v in funcs.items()}
+        smem_fn, blocks_fn = launch[src]
+        row = {"kernel": re.search(r"\d+([a-z_]+_kernel)", mangled).group(1),
+               "registers": r["registers"],
+               "spill_stores": sum(a for a, _ in spills.values()),
+               "spill_loads": sum(b for _, b in spills.values()),
+               "smem_static": r["smem_static"],
+               "smem_dynamic": smem_fn(), "blocks_per_sm": blocks_fn(name)}
+        report[name] = row
+        log(f"resources {name}: {json.dumps(row)}  [{s.card}]")
+        check(row["spill_stores"] == 0 and row["spill_loads"] == 0,
+              f"{name}: ptxas spills registers {spills}")
+        check(row["blocks_per_sm"] >= 1, f"{name}: no block fits an SM")
+    return report
 
 
 def card_line() -> str:
@@ -1096,7 +1344,8 @@ def time_paint_cell(root: str, reps: int = 10) -> int:
     build.build_libraries("paint", "items")
     dev = torch.device("cuda", 0)
     cfg = RenderConfig(width=320, height=200, mid_capacity=40,
-                       clip_capacity=64, item_capacity=24)
+                       clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True)
     eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
                                     config=cfg, device=dev)
     pos, ang = spread_poses(eng.tables, B)
@@ -1194,6 +1443,7 @@ def main() -> int:
     log(f"build, {len(libs)} kernels in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
     s = Smoke(card, dev)
+    resources = resource_report(s, libs)
 
     # ---- 2. each kernel against its plain version ---------------------------
     phase("kernel checks")
@@ -1255,7 +1505,21 @@ def main() -> int:
     err["itempass"] = max(err["itempass"], s.check_itempass(
         d1, st16, dataclasses.replace(cfg, max_visible_mobjs=256),
         "doom1-asset-scale B=16 max_visible_mobjs=256"))
-    # a tall screen and the widest the paint path takes, demo B=8
+    # K1 under a live-seg cap that drops segs, per camera and per tile
+    frame32, order32, _ = s.stage_inputs(e1, st32)
+    for percam in (True, False):
+        cfg_c = dataclasses.replace(cfg, paint_live_capacity=32,
+                                    paint_percam_compact=percam)
+        drop, dropped = s.paint.live_drop(cfg_c, args32[0], args32[1],
+                                          order32)
+        label = (f"e1m1-scale B=32 paint_live_capacity=32 "
+                 f"{'per camera' if percam else 'per tile'}, "
+                 f"{int(dropped)} live segs dropped")
+        check(int(dropped) > 0, f"{label}: the cap drops nothing")
+        err["paint"] = max(err["paint"], s.compare_paint(
+            dataclasses.replace(e1, config=cfg_c), args32, label, drop)[0])
+    del frame32, order32
+    # a tall screen and the widest paint screen of the demo, B=8: K1-K4
     for w, h in ((320, 768), (1024, 200)):
         cfg_s = RenderConfig(width=w, height=h, item_capacity=24)
         eng_s = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1",
@@ -1265,6 +1529,14 @@ def main() -> int:
             eng_s, s.stage_inputs(eng_s, st_s)[2], f"demo {w}x{h} B=8")[0])
         err["items"] = max(err["items"], s.check_items(
             eng_s, st_s, cfg_s, f"demo {w}x{h} B=8", variants=True))
+        err["scan"] = max(err["scan"], s.check_scan(
+            eng_s, st_s, dataclasses.replace(cfg_s, span_capacity=32),
+            f"demo {w}x{h} B=8 span_capacity=32"))
+        err["itempass"] = max(err["itempass"], s.check_itempass(
+            eng_s, st_s, dataclasses.replace(cfg_s, use_item_pass_kernel=True),
+            f"demo {w}x{h} B=8"))
+    # a masked mid 256 rows tall: the atlas holds 256 rows a column
+    err["items"] = max(err["items"], tall_mid_cell(s))
     kern_ms32 = event_ms(lambda: s.paint.paint(e1.level, cfg, *args32), 20)
     plain_ms32 = event_ms(
         lambda: s.paint.paint_reference(e1.level, cfg, *args32), 2)
@@ -1275,6 +1547,8 @@ def main() -> int:
     # ---- 3. the main paths at full size, timed ----------------------------
     r_paint = paint_cell(s)
     torch.cuda.empty_cache()
+    livecap_cell(s, r_paint["paint"]["ms"])
+    torch.cuda.empty_cache()
     r_scan = scan_cell(s)
     torch.cuda.empty_cache()
     r_ip = itempass_cell(s)
@@ -1284,6 +1558,11 @@ def main() -> int:
                   for m in sys.modules), "jax was imported")
     check(not any(m == "doomtpu" or m.startswith("doomtpu.")
                   for m in sys.modules), "the JAX package doomtpu was imported")
+    # the cost probes' builds: resources only (no main-path launches)
+    log(json.dumps({"probes": [
+        dict(name=name, source=f"doomtpu_torch/ops/csrc/"
+             f"{name.split('_probe')[0]}.cu", **resources[name])
+        for name in build.VARIANTS]}))
     row = lambda name, source, replaces, r, e: dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=r["launches"], max_abs_err=e, ms=r["ms"],

@@ -2,10 +2,11 @@
 
 The JAX package `doomtpu` is the reference; this package mirrors its
 module names (render/jmath, render/device, render/camera, ...) and
-imports only its host-side layers that never touch JAX (config, wad,
-level, assets, info).  It renders walls, visplanes and sky through a
-hand-written CUDA paint kernel (ops/csrc/paint.cu) on the card and
-through that kernel's plain PyTorch version on the CPU.
+imports nothing of it: it keeps its own copies of the host layers it
+reads (config, wad, level, assets, info).  It renders full frames
+(walls, visplanes, sky, sprites, masked mids) through four hand-written
+CUDA kernels on the card (ops/csrc: paint, items, itempass, scan) and
+through their plain PyTorch versions on the CPU.
 """
 
 from doomtpu_torch.engine import DoomEngine  # noqa: F401

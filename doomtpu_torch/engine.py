@@ -1,20 +1,23 @@
 """DoomEngine: the port's user-facing API.
 
-    engine = DoomEngine.from_wad("doom1.wad", "e1m1")   # on the card
+    engine = DoomEngine.from_wad("doom1.wad", "e1m1",     # on the card
+                                 config=RenderConfig(use_pallas_paint=True))
     state = engine.new_game(batch=2048, generator=torch.Generator("cuda"))
     idx, rgb = engine.render(state)                  # [B, H, W]
 
 Counterpart of doomtpu/engine.py.  The engine runs on the CUDA card
 unless the caller passes device="cpu" (where the kernels' plain PyTorch
 versions run).  This package renders full frames (walls, planes, sky,
-sprites, masked mids) of every level: through the paint kernel where
-the level and screen allow it, else through the wall-scan kernel and
-the resolve (render/frame.py).  With
-`config=RenderConfig(use_item_pass_kernel=True)` an eligible level's
-sprites and masked mids come from the item-pass kernel, which draws
-every selected item (no item pool, no item_capacity cap).  The
-simulation and calibration come with later slices and raise
-NotImplementedError until then.
+sprites, masked mids) of every level.  Walls, planes and sky come from
+the paint kernel where the config sets `use_pallas_paint` (as the JAX
+package's bench does on an accelerator) and the level, batch and screen
+allow it, else from the wall-scan kernel and the resolve
+(render/frame.py::paint_available: the JAX package's rule, so one config
+takes the same pipeline in both).  With `use_item_pass_kernel=True` as
+well, an eligible level's sprites and masked mids come from the
+item-pass kernel, which draws every selected item (no item pool, no
+item_capacity cap).  The simulation and calibration come with later
+slices and raise NotImplementedError until then.
 """
 
 from __future__ import annotations
@@ -110,9 +113,9 @@ class DoomEngine:
         """Summed capacity counters of a full render of any level:
         {overflow, live_dropped, items_dropped, item_overflow,
         item_block_dropped, live_stale}.  All 0 proves the configured
-        capacities (mid / clip pools on the paint path, the span pool on
-        the scan path, the item pool, max_visible_mobjs) dropped
-        nothing: the frame is exact."""
+        capacities (mid / clip pools and paint_live_capacity on the
+        paint path, the span pool on the scan path, the item pool,
+        max_visible_mobjs) dropped nothing: the frame is exact."""
         _, aux = self._render(state, items=True)
         return {k: int(aux[k].sum()) for k in (
             "overflow", "live_dropped", "items_dropped", "item_overflow",
@@ -125,8 +128,8 @@ class DoomEngine:
     def render_walls_counters(self, state: GameState) -> dict:
         """Summed capacity counters of a walls/planes render of any
         level: {overflow, live_dropped}.  All 0 proves the mid / clip
-        pools (paint path) or the span pool (scan path) dropped
-        nothing."""
+        pools and the live-seg cap (paint path) or the span pool (scan
+        path) dropped nothing."""
         _, aux = self._render(state, items=False)
         return {k: int(aux[k].sum()) for k in ("overflow", "live_dropped")}
 

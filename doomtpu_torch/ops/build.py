@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,7 +46,7 @@ _F = _C.c_float
 _SIGNATURES = {
     "paint": {
         "doom_paint": (
-            [_P, _P, _P, _P, _I, _I,            # rows, scnt, camf, cami, B, G
+            [_P, _P, _P, _P, _P, _I, _I,        # rows scnt drop camf cami B G
              _P, _I, _I, _P, _P, _P,            # tex, TH, TW, flats, sky, pal
              _I, _I, _I, _I, _I, _I,            # W, H, KM, KC, pow2, twq
              _F, _F, _F, _F, _F, _F, _F, _F]    # half_w half_h inv_aspect wx_c
@@ -84,31 +85,39 @@ _SIGNATURES = {
             + [_P, _I, _I, _I, _I, _I, _I, _P]  # atlas n rows T TW spr0 PW
             #                                     pal
             + [_I, _I, _I, _I, _I, _F]          # B W H KC KM inv_255
+            + [_I, _I]                          # tc, bands
             + [_P, _P, _P, _P],                 # idx ld rgb stream
             _I,
         ),
         "doom_itempass_error_string": ([_I], _C.c_char_p),
+        "doom_itempass_blocks_per_sm": ([_I, _I, _I, _I, _I], _I),
     },
     "scan": {
         "doom_scan": (
             [_P, _P, _I, _I, _I, _I, _I, _I, _I]  # rows scnt B G W H K TW pow2
+            + [_I]                              # tc
             + [_P, _P, _P, _P],                 # pool cnt ovf stream
             _I,
         ),
         "doom_scan_error_string": ([_I], _C.c_char_p),
+        "doom_scan_blocks_per_sm": ([_I], _I),
         "doom_row_words": ([], _I),
     },
 }
 
-# the cost probe's libraries: a kernel source built at a PAINT_PROBE level
-# (csrc/paint.cu), by library name -> (source, extra nvcc flags)
-VARIANTS = {f"paint_probe{n}": ("paint", (f"-DPAINT_PROBE={n}",))
-            for n in (1, 2, 3)}
+# the cost probes' libraries: a kernel source built at a probe level
+# (PAINT_PROBE in csrc/paint.cu, ITEMPASS_PROBE in csrc/itempass.cu,
+# SCAN_PROBE in csrc/scan.cu; the full kernel is the level above the
+# last), by library name -> (source, extra nvcc flags)
+PROBE_LEVELS = {"paint": 3, "itempass": 3, "scan": 2}
+VARIANTS = {f"{src}_probe{n}": (src, (f"-D{src.upper()}_PROBE={n}",))
+            for src, levels in PROBE_LEVELS.items()
+            for n in range(1, levels + 1)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # per library: seconds from the start of its build_libraries call until
 # its nvcc ended (the builds of one call run side by side), and nvcc's
-# output
+# output (also kept beside the library, `nvcc_output`)
 build_seconds: dict[str, float] = {}
 build_log: dict[str, str] = {}
 
@@ -181,9 +190,17 @@ def build_libraries(*names: str) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {name}:\n{build_log[name]}")
         else:
+            _lib_path(name).with_suffix(".log").write_text(build_log[name])
             os.replace(tmp, _lib_path(name))
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def nvcc_output(name: str) -> str:
+    """nvcc's output (ptxas's -v report) of the built library `name`."""
+    if name not in build_log:
+        build_log[name] = _lib_path(name).with_suffix(".log").read_text()
+    return build_log[name]
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -206,3 +223,35 @@ def load_library(name: str) -> ctypes.CDLL:
         )
     _loaded[name] = lib
     return lib
+
+
+def ptxas_resources(log: str) -> dict[str, dict]:
+    """Per kernel function in nvcc's `-Xptxas -v` output `log`: its
+    registers a thread, spill stores and spill loads (bytes) and static
+    shared memory (bytes).  A function ptxas reports without a register
+    line (a device function it did not inline) has spills only."""
+    out: dict[str, dict] = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            out.setdefault(props, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props is not None:
+            out[props].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry].update(registers=int(m.group(1)),
+                              smem_static=int(smem.group(1)) if smem else 0)
+    return out

@@ -62,7 +62,6 @@ namespace {
 constexpr int LD_WRITTEN = 1 << 24;
 constexpr int SPR_MARK = 1 << 29;
 constexpr int MAX_THREADS = 512;
-constexpr int REC_WORDS = 5;     // lsx, lsy, lex, ley, top | bottom
 
 struct Params {
   // item pool planes, each [B, KI, W]
@@ -80,25 +79,13 @@ struct Params {
   int* idx; int* ld; int* rgb;           // [B, H, W], updated in place
 };
 
-// a clip record's bounds on a sprite whose seg lies in front of it
-// (clip_fold's per-record terms): top | bottom as two i16
-__device__ __forceinline__ int record_bounds(int cw, int d2, int H) {
-  const bool is_mid = ((cw >> 29) & 3) == KIND_MID;
-  int top = -1, bot = H;
-  if (cw & SPAN_E2T) top = max(top, (cw & 255) - 1);
-  if ((cw & SPAN_DC) && is_mid) top = max(top, lo16(d2));
-  if (cw & SPAN_E2B) bot = min(bot, ((cw >> 8) & 255) - 1);
-  if (is_mid) bot = min(bot, d2 >> 16);
-  return pack16(top, bot);
-}
-
 __global__ void __launch_bounds__(MAX_THREADS) items_kernel(const Params p) {
   extern __shared__ int smem[];
   const int TC = p.TC, H = p.H, W = p.W;
   int* marks = smem;                          // [H][TC]
   int* srows = marks + H * TC;                // [KI][TC] y0 << 16 | y1
   int* slz = srows + p.KI * TC;               // [KI][TC] ld word
-  int* recs = slz + p.KI * TC;                // [KC][REC_WORDS][TC]
+  int* recs = slz + p.KI * TC;                // [KC][CLIP_RECORD_WORDS][TC]
 
   const int b = blockIdx.x / p.ntiles;
   const int c = threadIdx.x, g = threadIdx.y;
@@ -113,7 +100,7 @@ __global__ void __launch_bounds__(MAX_THREADS) items_kernel(const Params p) {
   const long clip0 = (long)b * p.KC * W + x;   // record k at + k * W
   ROLLED for (int k = g; k < ccnt; k += p.R) {
     const long o = clip0 + (long)k * W;
-    int* r = recs + k * REC_WORDS * TC + c;
+    int* r = recs + k * CLIP_RECORD_WORDS * TC + c;
     r[0] = p.clsx[o];
     r[TC] = p.clsy[o];
     r[2 * TC] = p.clex[o];
@@ -136,7 +123,7 @@ __global__ void __launch_bounds__(MAX_THREADS) items_kernel(const Params p) {
       const float vx = fbits(p.ivpx[o]), vy = fbits(p.ivpy[o]);
       int tsc = -1, bsc = H;
       const int* r = recs + c;
-      ROLLED for (int kc = 0; kc < ccnt; ++kc, r += REC_WORDS * TC) {
+      ROLLED for (int kc = 0; kc < ccnt; ++kc, r += CLIP_RECORD_WORDS * TC) {
         if (is_behind_vertex(fbits(r[0]), fbits(r[TC]), fbits(r[2 * TC]),
                              fbits(r[3 * TC]), vx, vy))
           continue;
@@ -187,8 +174,7 @@ __global__ void __launch_bounds__(MAX_THREADS) items_kernel(const Params p) {
     }
   }
 
-  // (4) shade the marked pixels (bitmap_render.rs:190-208; light / 255
-  // is the multiply by inv_255 = f32(1 / 255) that XLA makes of it)
+  // (4) shade the marked pixels (layout.cuh, shade_rgb)
   if (cnt == 0) return;
   const long pix0 = (long)b * H * W + x;       // row y at + y * W
   ROLLED for (int y = ylo; y <= yhi; ++y) {
@@ -196,24 +182,10 @@ __global__ void __launch_bounds__(MAX_THREADS) items_kernel(const Params p) {
     if (m == 0) continue;
     const int texel = m & 0xFF;
     const int l = slz[((m >> 8) - 1) * TC + c];
-    const float light = (float)((l >> 16) & 0xFF);
-    const float zd = (float)lo16(l);
-    float factor = __fsub_rn(__fmul_rn(light, p.inv_255),
-                             __fmul_rn(zd, 1.0f / 4096.0f));
-    factor = fmaxf(factor, 0.0f);
-    const int rgbw = p.pal[texel];
-    int packed = 0;
-#pragma unroll
-    for (int shift = 16; shift >= 0; shift -= 8) {
-      const float chan = (float)((rgbw >> shift) & 0xFF);
-      const float byte = fminf(fmaxf(truncf(__fmul_rn(chan, factor)), 0.0f),
-                               255.0f);
-      packed |= ((int)byte) << shift;
-    }
     const long q = pix0 + (long)y * W;
     p.idx[q] = texel;
     p.ld[q] = l;
-    p.rgb[q] = packed;
+    p.rgb[q] = shade_rgb(p.pal[texel], l, p.inv_255);
   }
 }
 
@@ -250,7 +222,7 @@ int doom_items(
            B, W, H, KI, KC, inv_255, tc, bands, (H + bands - 1) / bands,
            ntiles, idx, ld, rgb};
   const size_t smem =
-      (size_t)tc * (H + 2 * KI + REC_WORDS * KC) * sizeof(int);
+      (size_t)tc * (H + 2 * KI + CLIP_RECORD_WORDS * KC) * sizeof(int);
   const cudaError_t e = allow_smem(smem);
   if (e != cudaSuccess) return (int)e;
   items_kernel<<<(unsigned)B * ntiles, dim3(tc, bands), smem,
@@ -261,7 +233,7 @@ int doom_items(
 // blocks of tc x bands threads the card keeps on one SM
 int doom_items_blocks_per_sm(int tc, int bands, int H, int KI, int KC) {
   const size_t smem =
-      (size_t)tc * (H + 2 * KI + REC_WORDS * KC) * sizeof(int);
+      (size_t)tc * (H + 2 * KI + CLIP_RECORD_WORDS * KC) * sizeof(int);
   if (allow_smem(smem) != cudaSuccess) return 0;
   int blocks = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, items_kernel,

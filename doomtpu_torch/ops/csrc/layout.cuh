@@ -1,8 +1,9 @@
 // Word layouts and device helpers shared by the kernels: paint.cu,
-// scan.cu, items.cu and itempass.cu.  Mirrors doomtpu_torch/ops/layout.py: the span
-// record of the pools and the seg row the paint and wall-scan kernels
-// read.  Those two libraries export doom_row_words() = NR, which
-// ops/build.py checks against the Python NR when it loads them.
+// scan.cu, items.cu and itempass.cu.  Mirrors doomtpu_torch/ops/layout.py:
+// the span record of the pools and the seg row the paint and wall-scan
+// kernels read (those two libraries export doom_row_words() = NR, which
+// ops/build.py checks against the Python NR when it loads them); the
+// item kernels' staged clip record and shade.
 
 #pragma once
 
@@ -90,64 +91,41 @@ __device__ __forceinline__ int wrap_tex(int t, int size, int pow2) {
   return t % size;
 }
 
-// The sprite-vs-seg clip (renderer/map_objects.rs:127-166): over one
-// column's first cnt clip records (record kc at c0 + kc * W of each
-// plane), the tightest top (tsc, from -1) and bottom (bsc, from H) of
-// the records whose seg lies in front of the sprite at view-space
-// (vx, vy).
-__device__ __forceinline__ void clip_fold(
-    const int* cspan, const int* cd2, const int* clsx, const int* clsy,
-    const int* clex, const int* cley, long c0, int W, int cnt, float vx,
-    float vy, int H, int& tsc, int& bsc) {
-  tsc = -1;
-  bsc = H;
-  _Pragma("unroll 1")
-  for (int kc = 0; kc < cnt; ++kc) {
-    const long c = c0 + (long)kc * W;
-    if (is_behind_vertex(fbits(clsx[c]), fbits(clsy[c]), fbits(clex[c]),
-                         fbits(cley[c]), vx, vy))
-      continue;
-    const int cw = cspan[c];
-    const bool is_mid = ((cw >> 29) & 3) == KIND_MID;
-    const int d2 = cd2[c];
-    if (cw & SPAN_E2T) tsc = max(tsc, (cw & 255) - 1);
-    if ((cw & SPAN_DC) && is_mid) tsc = max(tsc, lo16(d2));
-    if (cw & SPAN_E2B) bsc = min(bsc, ((cw >> 8) & 255) - 1);
-    if (is_mid) bsc = min(bsc, d2 >> 16);
-  }
+// A clip record staged for the sprite-vs-seg clip
+// (renderer/map_objects.rs:127-166) by the item kernels: the seg's two
+// endpoints (lsx, lsy, lex, ley) and `record_bounds`.
+constexpr int CLIP_RECORD_WORDS = 5;
+
+// a clip record's bounds on a sprite whose seg lies in front of it: the
+// top (from -1) and bottom (from H) it sets, as two i16 top | bottom
+__device__ __forceinline__ int record_bounds(int cw, int d2, int H) {
+  const bool is_mid = ((cw >> 29) & 3) == KIND_MID;
+  int top = -1, bot = H;
+  if (cw & SPAN_E2T) top = max(top, (cw & 255) - 1);
+  if ((cw & SPAN_DC) && is_mid) top = max(top, lo16(d2));
+  if (cw & SPAN_E2B) bot = min(bot, ((cw >> 8) & 255) - 1);
+  if (is_mid) bot = min(bot, d2 >> 16);
+  return pack16(top, bot);
 }
 
-// The item-pass kernel's last pass over one column's rows [ylo, yhi]: a
-// pixel an item wrote holds idx = -2 - texel (the paint frame's idx is
-// -1 or a texel).  Shade it (bitmap_render.rs:190-208: palette, light
-// diminish; light / 255 is the multiply by inv_255 = f32(1 / 255) that
-// XLA makes of it) and restore its idx.
-__device__ __forceinline__ void shade_marked_rows(
-    int* idx, const int* ld, int* rgb, const int* pal, float inv_255,
-    long pix0, int W, int ylo, int yhi) {
-  _Pragma("unroll 1")
-  for (int y = ylo; y <= yhi; ++y) {
-    const long q = pix0 + (long)y * W;
-    const int v = idx[q];
-    if (v > -2) continue;
-    const int texel = -2 - v;
-    const int l = ld[q];
-    const float light = (float)((l >> 16) & 0xFF);
-    const float zd = (float)lo16(l);
-    float factor = __fsub_rn(__fmul_rn(light, inv_255),
-                             __fmul_rn(zd, 1.0f / 4096.0f));
-    factor = fmaxf(factor, 0.0f);
-    const int c = pal[texel];
-    int packed = 0;
-    for (int shift = 16; shift >= 0; shift -= 8) {
-      const float chan = (float)((c >> shift) & 0xFF);
-      const float byte = fminf(fmaxf(truncf(__fmul_rn(chan, factor)), 0.0f),
-                               255.0f);
-      packed |= ((int)byte) << shift;
-    }
-    idx[q] = texel;
-    rgb[q] = packed;
+// The shade of an item pixel (bitmap_render.rs:190-208): palette colour
+// `rgbw` diminished by the ld word's light and zdist; light / 255 is the
+// multiply by inv_255 = f32(1 / 255) that XLA makes of it.
+__device__ __forceinline__ int shade_rgb(int rgbw, int ld, float inv_255) {
+  const float light = (float)((ld >> 16) & 0xFF);
+  const float zd = (float)lo16(ld);
+  float factor = __fsub_rn(__fmul_rn(light, inv_255),
+                           __fmul_rn(zd, 1.0f / 4096.0f));
+  factor = fmaxf(factor, 0.0f);
+  int packed = 0;
+#pragma unroll
+  for (int shift = 16; shift >= 0; shift -= 8) {
+    const float chan = (float)((rgbw >> shift) & 0xFF);
+    const float byte = fminf(fmaxf(truncf(__fmul_rn(chan, factor)), 0.0f),
+                             255.0f);
+    packed |= ((int)byte) << shift;
   }
+  return packed;
 }
 
 }  // namespace

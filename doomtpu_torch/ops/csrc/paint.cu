@@ -17,7 +17,9 @@
 // its rows, [g * BH, (g + 1) * BH).
 //
 // Warp 0 lists, in traversal order, the camera's active segs whose x
-// range meets the tile (up to LIST a round, one ballot per 32 rows).
+// range meets the tile and that the live-seg cap keeps at the tile's
+// 128-column block (`drop`, ops/paint.py::live_drop; a tile never
+// straddles two blocks), up to LIST a round, one ballot per 32 rows.
 // The list is taken R segs a step, in three phases split by barriers:
 // (1) thread g does seg g's divides at its column (texture column, 1/z
 // distance, each piece's bottom and top row: the terms that do not
@@ -92,7 +94,9 @@ constexpr int JOB_FLOOR = 4, JOB_CEIL = 5;   // job kinds; 0-3: wall piece
 constexpr int MID_PLANES = 7, CLIP_PLANES = 7;
 
 struct Params {
-  const int* rows; const int* scnt; const float* camf; const int* cami;
+  const int* rows; const int* scnt;
+  const int* drop;   // [B, G] bit w: the row is dropped at block w; or null
+  const float* camf; const int* cami;
   int B, G;
   const int* tex; int TH, TW;
   const int* flats; const int* sky; const int* pal;
@@ -328,7 +332,9 @@ paint_kernel(const Params P) {
         if (k < n) {
           const int* row = rows_b + (size_t)k * NR;
           keep = (row[R_FLAGS] & 15) != 0 && clamp_i16(row[R_X1]) >= tx0
-                 && clamp_i16(row[R_X0]) <= tx1;
+                 && clamp_i16(row[R_X0]) <= tx1
+                 && !(P.drop && ((P.drop[(size_t)b * P.G + k] >> (tx0 >> 7))
+                                 & 1));
         }
         const unsigned ball = __ballot_sync(mask, keep);
         if (m + __popc(ball) > LIST) break;
@@ -555,8 +561,8 @@ extern "C" {
 
 // tc columns per block, bands threads per column (tc * bands <= 256);
 // ovf must hold zeros.
-int doom_paint(const int* rows, const int* scnt, const float* camf,
-               const int* cami, int B, int G,
+int doom_paint(const int* rows, const int* scnt, const int* drop,
+               const float* camf, const int* cami, int B, int G,
                const int* tex, int TH, int TW, const int* flats,
                const int* sky, const int* pal,
                int W, int H, int KM, int KC, int pow2, int twq,
@@ -571,7 +577,7 @@ int doom_paint(const int* rows, const int* scnt, const float* camf,
     return (int)cudaErrorInvalidConfiguration;
   const int ntiles = (W + tc - 1) / tc;
   const int bh = (H + bands - 1) / bands;
-  Params P{rows, scnt, camf, cami, B, G, tex, TH, TW, flats, sky, pal,
+  Params P{rows, scnt, drop, camf, cami, B, G, tex, TH, TW, flats, sky, pal,
            W, H, KM, KC, pow2, twq, half_w, half_h, inv_aspect, wx_c, eye,
            inv_w, inv_h, inv_255, tc, bands, bh, ntiles,
            idx, ld, rgb, mpool, cpool, cnt_mid, cnt_clip, ovf};

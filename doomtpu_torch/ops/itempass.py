@@ -44,10 +44,12 @@ import torch
 
 from doomtpu_torch.config import RenderConfig
 from doomtpu_torch.ops.items import (
-    CLIP_FIELDS, clip_record_bounds, shade_over,
+    CLIP_FIELDS, CLIP_RECORD_WORDS, clip_record_bounds, shade_over,
 )
 from doomtpu_torch.ops.layout import KIND_MID
-from doomtpu_torch.ops.paint import LD_WRITTEN, _consts, pools_from_paint
+from doomtpu_torch.ops.paint import (
+    LD_WRITTEN, SMEM_BLOCK_BYTES, _consts, pools_from_paint,
+)
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, f32, fdiv, smul, wrap_tex,
@@ -134,6 +136,55 @@ def _picture_columns(level: DeviceLevel) -> dict:
             "spr0": level.col_spr_off, "PW": level.spr_pw}
 
 
+# csrc/itempass.cu: items a round (S), words of an (item, column) pair's
+# terms and of an item's staged pack, threads a block at most
+ROUND_ITEMS, PAIR_TERMS, PACK_WORDS = 16, 6, IPI_ROWS + IPF_ROWS
+MAX_BLOCK_THREADS = 512
+# rows a band of the item-pass block holds (see paint.BAND_ROWS); timed
+# on the card (PERF.md)
+BAND_ROWS = 13
+
+
+def itempass_smem_bytes(tc: int, bands: int, H: int, KC: int,
+                        KM: int) -> int:
+    """Shared memory of an item-pass block of `tc` columns and `bands`
+    threads a column (csrc/itempass.cu): a 16-bit mark a pixel, a
+    round's (item, column) terms and pack words, the staged clip records
+    and mid keys of pools of KC / KM slots, and a pass's list (an item a
+    thread) and warp counts."""
+    threads = tc * bands
+    return (4 * (tc * (PAIR_TERMS * ROUND_ITEMS + CLIP_RECORD_WORDS * KC
+                       + KM) + ROUND_ITEMS * PACK_WORDS + threads
+                 + -(-threads // 32)) + 2 * tc * H)
+
+
+def itempass_tile(H: int, KC: int, KM: int,
+                  band_rows: int = BAND_ROWS) -> tuple[int, int]:
+    """(TC, R) of an item-pass block at screen height H and clip / mid
+    capacities KC / KM: TC columns, 32 while `itempass_smem_bytes` fits
+    the SMEM_BLOCK_BYTES a block may use, else as many as fit; R threads
+    a column, each folding a band of about `band_rows` rows."""
+    for tc in range(32, 0, -1):
+        bands = max(1, min(-(-H // band_rows), MAX_BLOCK_THREADS // tc))
+        if itempass_smem_bytes(tc, bands, H, KC, KM) <= SMEM_BLOCK_BYTES:
+            return tc, bands
+    raise ValueError(f"item_pass: height {H} and pools {KC} / {KM} leave "
+                     f"no column within {SMEM_BLOCK_BYTES} bytes")
+
+
+def itempass_blocks_per_sm(H: int, KC: int, KM: int,
+                           band_rows: int = BAND_ROWS,
+                           lib: str = "itempass") -> int:
+    """Item-pass blocks one SM of this card holds (the CUDA occupancy
+    calculator, from the built kernel's registers and the block's
+    shared memory); `lib` names a cost-probe build instead."""
+    from doomtpu_torch.ops.build import load_library
+
+    tc, bands = itempass_tile(H, KC, KM, band_rows)
+    return load_library(lib).doom_itempass_blocks_per_sm(tc, bands, H, KC,
+                                                         KM)
+
+
 def item_pass(level: DeviceLevel, cfg: RenderConfig, items: dict,
               paint_out: dict):
     """Paint `items` (render/things.item_pack) over the paint frame of
@@ -141,16 +192,49 @@ def item_pass(level: DeviceLevel, cfg: RenderConfig, items: dict,
     updated in place and returned.  CUDA tensors launch the kernel
     (csrc/itempass.cu); CPU tensors run `item_pass_reference`.  Anything
     else raises."""
-    clip, mid = _check(level, cfg, items, paint_out)
-    idx, ld, rgb = (paint_out[k] for k in ("idx", "ld", "rgb"))
+    _check(level, cfg, items, paint_out)
+    idx = paint_out["idx"]
     if idx.device.type == "cpu":
         return item_pass_reference(level, cfg, items, paint_out)
     if idx.device.type != "cuda":
         raise ValueError(f"item_pass: no kernel for device {idx.device}")
+    launch_item_pass("itempass", level, cfg, items, paint_out, BAND_ROWS)
+    item_pass.launches += 1
+    return idx, paint_out["ld"], paint_out["rgb"]
+
+
+def item_pass_probe(level: DeviceLevel, cfg: RenderConfig, items: dict,
+                    paint_out: dict, probe: int,
+                    band_rows: int = BAND_ROWS) -> None:
+    """The item-pass kernel for the cost probe only (CUDA tensors; not
+    counted as a launch of `item_pass`): ITEMPASS_PROBE level 1 culls the
+    items and stages them and the records, 2 adds the (item, column)
+    terms, 3 the fold into the marks, without the write
+    (csrc/itempass.cu); 4 is the full kernel.  `band_rows` sets its
+    threads a column (`itempass_tile`).  Only level 4 updates the frame
+    as the item pass does."""
+    _check(level, cfg, items, paint_out)
+    if paint_out["idx"].device.type != "cuda" or probe not in (1, 2, 3, 4):
+        raise ValueError(f"item_pass_probe: level {probe} on "
+                         f"{paint_out['idx'].device}")
+    lib = "itempass" if probe == 4 else f"itempass_probe{probe}"
+    launch_item_pass(lib, level, cfg, items, paint_out, band_rows)
+
+
+def launch_item_pass(lib_name: str, level: DeviceLevel, cfg: RenderConfig,
+                     items: dict, paint_out: dict, band_rows: int) -> None:
+    """The item-pass kernel's launch (library `lib_name`) on checked CUDA
+    tensors, with bands of `band_rows` rows (`itempass_tile`).
+    `item_pass` is this at BAND_ROWS, counted; the cost probe and the
+    card's band sweep call it directly."""
     from doomtpu_torch.ops.build import load_library
 
-    lib = load_library("itempass")
+    clip, mid = pools_from_paint(paint_out)
+    idx, ld, rgb = (paint_out[k] for k in ("idx", "ld", "rgb"))
+    lib = load_library(lib_name)
     B, H, W = idx.shape
+    KC, KM = clip["span"].shape[1], mid["span"].shape[1]
+    tc, bands = itempass_tile(H, KC, KM, band_rows)
     pc = _picture_columns(level)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     stream = torch.cuda.current_stream(idx.device).cuda_stream
@@ -160,15 +244,12 @@ def item_pass(level: DeviceLevel, cfg: RenderConfig, items: dict,
         *[ptr(mid[k]) for k in MID_FIELDS], ptr(mid["cnt"]),
         ptr(level.atlas_cm), level.atlas_cm.numel(), level.atlas_rows,
         pc["T"], pc["TW"], pc["spr0"], pc["PW"], ptr(level.palette_packed),
-        B, W, H, clip["span"].shape[1], mid["span"].shape[1],
-        _consts(cfg)["inv_255"], ptr(idx), ptr(ld), ptr(rgb),
-        ctypes.c_void_p(stream),
+        B, W, H, KC, KM, _consts(cfg)["inv_255"], tc, bands,
+        ptr(idx), ptr(ld), ptr(rgb), ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"item-pass kernel launch failed: CUDA error {err} "
                            f"({lib.doom_itempass_error_string(err).decode()})")
-    item_pass.launches += 1
-    return idx, ld, rgb
 
 
 item_pass.launches = 0

@@ -80,8 +80,15 @@ def _check(level: DeviceLevel, cfg: RenderConfig, ipool, icnt, idx, ld, rgb,
 # rows a band of the item kernel's block holds (see paint.BAND_ROWS);
 # timed on the card (PERF.md)
 BAND_ROWS = 13
-CLIP_RECORD_WORDS = 5    # csrc/items.cu's staged clip record
+CLIP_RECORD_WORDS = 5    # csrc/layout.cuh's staged clip record
 MAX_BLOCK_THREADS = 512  # csrc/items.cu's MAX_THREADS
+
+
+def items_smem_bytes(tc: int, H: int, KI: int, KC: int) -> int:
+    """Shared memory of an item-kernel block (csrc/items.cu): a mark a
+    pixel, two words a slot and a staged clip record a clip slot, for
+    `tc` columns."""
+    return 4 * tc * (H + 2 * KI + CLIP_RECORD_WORDS * KC)
 
 
 def items_tile(H: int, KI: int, KC: int,
@@ -91,7 +98,7 @@ def items_tile(H: int, KI: int, KC: int,
     (a mark a pixel, two words a slot, a staged clip record a clip slot)
     fits the SMEM_BLOCK_BYTES a block may use, else as many as fit; R
     threads a column, each shading a band of about `band_rows` rows."""
-    per_column = 4 * (H + 2 * KI + CLIP_RECORD_WORDS * KC)
+    per_column = items_smem_bytes(1, H, KI, KC)
     tc = min(32, SMEM_BLOCK_BYTES // per_column)
     if tc < 1:
         raise ValueError(f"composite_items: {per_column} bytes a column "

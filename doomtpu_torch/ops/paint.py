@@ -200,25 +200,99 @@ def render_paint(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
 
     Returns idx/ld/rgb [B, H, W], the mid pool (7 x [B, W, KM]), cnt_mid,
     the clip pool (7 x [B, W, KC]), cnt_clip, overflow [B, 2] (mid,
-    clip), and live_dropped / live_stale (0: every active seg is
-    visited).  ld packs light(8)<<16 | dist(u16) | written<<24 | sky<<25.
+    clip), live_dropped (the live segs `paint_live_capacity` dropped,
+    `live_drop`) and live_stale (0: there is no cross-tick reuse).  ld
+    packs light(8)<<16 | dist(u16) | written<<24 | sky<<25.
     """
     if not level.paint_ok:
         raise ValueError("level not eligible for the paint kernel "
                          "(wall-piece textures > 256x128 or transparent)")
-    if cfg.paint_live_capacity > 0:
-        raise NotImplementedError(
-            "paint_live_capacity > 0: the farthest-first live-seg drop "
-            "is not ported; every active seg is always visited"
-        )
     rows, scnt, camf, cami = build_inputs(
         level, cfg, frame, order, angle, px, py, floor_height
     )
-    out = paint(level, cfg, rows, scnt, camf, cami)
-    zero = torch.zeros((), dtype=I32, device=rows.device)
-    out["live_dropped"] = zero
-    out["live_stale"] = zero
+    drop, live_dropped = live_drop(cfg, rows, scnt, order)
+    out = paint(level, cfg, rows, scnt, camf, cami, drop)
+    out["live_dropped"] = live_dropped
+    out["live_stale"] = torch.zeros((), dtype=I32, device=rows.device)
     return out
+
+
+# the JAX kernel's live lists: 128-column blocks, and a capacity rounded
+# up to a multiple of its seg unroll x group (pallas_paint.py SEG_UNROLL,
+# SEG_GSUB; U = min(SEG_UNROLL, G))
+LIVE_BLOCK = 128
+SEG_UNROLL, SEG_GSUB = 4, 8
+
+
+def live_capacity(cfg: RenderConfig, G: int) -> int | None:
+    """The live segs a (camera or tile, block) keeps under
+    cfg.paint_live_capacity (JAX render_paint's `capped`), or None where
+    the cap keeps every seg."""
+    ug = min(SEG_UNROLL, G) * SEG_GSUB
+    gp = -(-G // ug) * ug
+    if not 0 < cfg.paint_live_capacity < gp:
+        return None
+    return min(gp, -(-cfg.paint_live_capacity // ug) * ug)
+
+
+def live_lists(cfg: RenderConfig, rows, scnt, order):
+    """(live [B, G, NBW] bool, rank [B, G, NBW] i32, cnt [L, NBW] i32):
+    the live-seg lists of JAX render_paint (pallas_paint.py:1605-1745)
+    over the rows of ops/paint.build_rows.
+
+    A seg is live in a 128-column block where it is active and its
+    [x0, x1] meets the block.  Per camera (`paint_percam_compact`) a
+    list holds a camera's live segs of a block in traversal order (front
+    to back); otherwise a tile of 8 cameras (4 where B is no multiple of
+    8) shares, per block, the list of traversal positions live for any
+    of its cameras.  live[b, k, w]: row k of camera b is live in block
+    w; rank: its place in its list, from 1; cnt: each list's length (L
+    lists: one a camera or one a tile)."""
+    B, G = order.shape
+    nbw = -(-cfg.width // LIVE_BLOCK)
+    dev = rows.device
+    active = torch.arange(G, device=dev)[None] < scnt[:, None]
+    wlo = torch.arange(nbw, dtype=I32, device=dev) * LIVE_BLOCK
+    x0 = as_i16(rows[..., R_X0])[..., None]
+    x1 = as_i16(rows[..., R_X1])[..., None]
+    live = active[..., None] & (x0 < wlo + LIVE_BLOCK) & (x1 >= wlo)
+    if cfg.paint_percam_compact:
+        return live, torch.cumsum(live.to(I32), 1, dtype=I32), live.sum(
+            1, dtype=I32)
+    if B % 4:
+        raise ValueError(f"live lists: batch {B} is no multiple of the "
+                         f"4-camera tile")
+    tb = 8 if B % 8 == 0 else 4
+    # each row's traversal position: the rows hold every seg once
+    pos = torch.gather(torch.argsort(order.long(), 1), 1,
+                       rows[..., R_G].long())[..., None].expand_as(live)
+    live_t = torch.zeros_like(live).scatter_(1, pos, live).view(
+        B // tb, tb, G, nbw).any(1)
+    rank_t = torch.cumsum(live_t.to(I32), 1, dtype=I32)
+    rank = torch.gather(rank_t.repeat_interleave(tb, 0), 1, pos)
+    return live, rank, live_t.sum(1, dtype=I32)
+
+
+def live_drop(cfg: RenderConfig, rows, scnt, order):
+    """(drop [B, G] i32 or None, live_dropped i32 scalar): the segs
+    cfg.paint_live_capacity drops, farthest first: each list of
+    `live_lists` keeps its first `live_capacity` entries.  Bit w of
+    drop[b, k] is set where row k of camera b is live in block w and
+    dropped; the paint skips it at that block's columns.  None: the cap
+    keeps every seg."""
+    gc = live_capacity(cfg, order.shape[1])
+    if gc is None:
+        return None, torch.zeros((), dtype=I32, device=rows.device)
+    nbw = -(-cfg.width // LIVE_BLOCK)
+    if nbw > 32:
+        raise ValueError(f"paint_live_capacity: {cfg.width} columns make "
+                         f"{nbw} live-list blocks; the drop mask holds 32")
+    live, rank, cnt = live_lists(cfg, rows, scnt, order)
+    dropped = live & (rank > gc)
+    drop = torch.zeros(rows.shape[:2], dtype=I32, device=rows.device)
+    for w in range(nbw):                       # bit 31 wraps to the sign
+        drop |= dropped[..., w].to(I32) << w
+    return drop, (cnt - gc).clamp(min=0).sum().to(I32)
 
 
 def pools_from_paint(out_or_aux: dict):
@@ -244,7 +318,7 @@ def pools_from_paint(out_or_aux: dict):
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _check_inputs(level, cfg, rows, scnt, camf, cami):
+def _check_inputs(level, cfg, rows, scnt, camf, cami, drop):
     B = rows.shape[0]
     want = {
         "rows": (rows, I32, (B, level.num_segs, NR)),
@@ -252,6 +326,11 @@ def _check_inputs(level, cfg, rows, scnt, camf, cami):
         "camf": (camf, F32, (B, 3)),
         "cami": (cami, I32, (B, 3)),
     }
+    if drop is not None:
+        want["drop"] = (drop, I32, (B, level.num_segs))
+        if cfg.width > 32 * LIVE_BLOCK:
+            raise ValueError(f"paint: a drop mask covers {32 * LIVE_BLOCK} "
+                             f"columns, the screen {cfg.width}")
     for name, (t, dt, shape) in want.items():
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"paint: {name} must be {dt} {shape}, got "
@@ -331,10 +410,12 @@ def paint_smem_bytes(tc: int, bands: int, H: int) -> int:
 def paint_tile(H: int, band_rows: int = BAND_ROWS) -> tuple[int, int]:
     """(TC, R) of a paint block at screen height H: TC columns, 32 while
     the block's shared memory (`paint_smem_bytes`) fits the
-    SMEM_BLOCK_BYTES a block may use, else as many as fit; R threads a
-    column, each painting a band of about `band_rows` rows,
+    SMEM_BLOCK_BYTES a block may use, else the largest power of two
+    that fits (so a tile never straddles a 128-column live-list block,
+    whose drop bit the kernel tests once a tile); R threads a column,
+    each painting a band of about `band_rows` rows,
     TC * R <= MAX_BLOCK_THREADS."""
-    for tc in range(32, 0, -1):
+    for tc in (32, 16, 8, 4, 2, 1):
         bands = max(1, min(-(-H // band_rows), MAX_BLOCK_THREADS // tc))
         if paint_smem_bytes(tc, bands, H) <= SMEM_BLOCK_BYTES:
             return tc, bands
@@ -342,28 +423,32 @@ def paint_tile(H: int, band_rows: int = BAND_ROWS) -> tuple[int, int]:
                      f"within {SMEM_BLOCK_BYTES} bytes")
 
 
-def paint_blocks_per_sm(H: int, band_rows: int = BAND_ROWS) -> int:
+def paint_blocks_per_sm(H: int, band_rows: int = BAND_ROWS,
+                        lib: str = "paint") -> int:
     """Paint blocks one SM of this card holds at height H (the CUDA
     occupancy calculator, from the built kernel's registers and the
-    block's shared memory)."""
+    block's shared memory); `lib` names a cost-probe build instead."""
     from doomtpu_torch.ops.build import load_library
 
     tc, bands = paint_tile(H, band_rows)
-    return load_library("paint").doom_paint_blocks_per_sm(tc, bands, H)
+    return load_library(lib).doom_paint_blocks_per_sm(tc, bands, H)
 
 
 def paint(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
-          cami) -> dict:
-    """Paint B cameras.  CUDA tensors launch the kernel (csrc/paint.cu);
-    CPU tensors run `paint_reference`.  Anything else raises.  The
-    kernel leaves pool slots past a column's count unwritten (the plain
-    version zero-fills them); nothing reads them."""
-    _check_inputs(level, cfg, rows, scnt, camf, cami)
+          cami, drop=None) -> dict:
+    """Paint B cameras, skipping each row at the 128-column blocks its
+    `drop` word's bits name (`live_drop`; None: none).  CUDA tensors
+    launch the kernel (csrc/paint.cu); CPU tensors run
+    `paint_reference`.  Anything else raises.  The kernel leaves pool
+    slots past a column's count unwritten (the plain version zero-fills
+    them); nothing reads them."""
+    _check_inputs(level, cfg, rows, scnt, camf, cami, drop)
     if rows.device.type == "cpu":
-        return paint_reference(level, cfg, rows, scnt, camf, cami)
+        return paint_reference(level, cfg, rows, scnt, camf, cami, drop)
     if rows.device.type != "cuda":
         raise ValueError(f"paint: no kernel for device {rows.device}")
-    out = _launch("paint", BAND_ROWS, level, cfg, rows, scnt, camf, cami)
+    out = _launch("paint", BAND_ROWS, level, cfg, rows, scnt, camf, cami,
+                  drop)
     paint.launches += 1
     return out
 
@@ -376,14 +461,15 @@ def paint_probe(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
     and emit math without painting (csrc/paint.cu), 4 is the full
     kernel; `band_rows` sets its threads a column (`paint_tile`).  Only
     level 4's outputs are the paint's."""
-    _check_inputs(level, cfg, rows, scnt, camf, cami)
+    _check_inputs(level, cfg, rows, scnt, camf, cami, None)
     if rows.device.type != "cuda" or probe not in (1, 2, 3, 4):
         raise ValueError(f"paint_probe: level {probe} on {rows.device}")
     lib = "paint" if probe == 4 else f"paint_probe{probe}"
-    return _launch(lib, band_rows, level, cfg, rows, scnt, camf, cami)
+    return _launch(lib, band_rows, level, cfg, rows, scnt, camf, cami, None)
 
 
-def _launch(lib_name, band_rows, level, cfg, rows, scnt, camf, cami) -> dict:
+def _launch(lib_name, band_rows, level, cfg, rows, scnt, camf, cami,
+            drop) -> dict:
     from doomtpu_torch.ops.build import load_library
 
     B, G = rows.shape[:2]
@@ -398,7 +484,9 @@ def _launch(lib_name, band_rows, level, cfg, rows, scnt, camf, cami) -> dict:
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     err = lib.doom_paint(
-        p(rows), p(scnt), p(camf), p(cami), B, G,
+        p(rows), p(scnt), ctypes.c_void_p(None if drop is None
+                                          else drop.data_ptr()),
+        p(camf), p(cami), B, G,
         p(level.tex_pixels), TH, TW, p(level.flat_pixels),
         p(level.sky_pixels), p(level.palette_packed),
         W, H, KM, KC, int(level.tex_sizes_pow2), twq,
@@ -422,12 +510,12 @@ paint.launches = 0
 # ---------------------------------------------------------------------------
 
 def paint_reference(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
-                    cami) -> dict:
+                    cami, drop=None) -> dict:
     """Plain PyTorch paint: a Python loop over the ordered seg slots with
     [B, W] state tensors, painting [B, H, W] buffers under masks.  Same
     arguments and outputs as `paint`; every op is an IEEE f32 op with
     the kernel's rounding, so the two agree bit for bit."""
-    _check_inputs(level, cfg, rows, scnt, camf, cami)
+    _check_inputs(level, cfg, rows, scnt, camf, cami, drop)
     dev = rows.device
     B = rows.shape[0]
     W, H, KM, KC = cfg.width, cfg.height, cfg.mid_capacity, cfg.clip_capacity
@@ -537,6 +625,9 @@ def paint_reference(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
         x0, x1 = iv(R_X0), iv(R_X1)
         x0i, x1i = as_i16(x0), as_i16(x1)
         inrange = (xx >= x0i) & (xx <= x1i)
+        if drop is not None:    # dropped at this column's live-list block
+            block = xx // LIVE_BLOCK
+            inrange &= ((drop[:, slot:slot + 1] >> block) & 1) == 0
         if not bool((inrange & ((flags & 15) != 0) & ~hor).any()):
             continue    # every piece is a no-op on every open column
         two_sided = (flags & 16) != 0

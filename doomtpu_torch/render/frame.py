@@ -2,8 +2,9 @@
 and sky -> deferred items.
 
 Counterpart of doomtpu/render/frame.py.  Walls, planes and sky come from
-the paint kernel where the level and screen allow it (`paint_available`,
-the JAX frame.py:245-259 path), else from the scan + resolve pipeline:
+the paint kernel where the config asks for it and the level, batch and
+screen allow it (`paint_available`, the JAX frame.py:245-259 path), else
+from the scan + resolve pipeline:
 the wall-scan kernel's unified span pool, the resolve and the shade
 (JAX frame.py:261-272).  Both then run the same deferred pass with the
 item kernel, unless the config asks for the item-pass kernel and the
@@ -25,14 +26,23 @@ from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import I32
 
 
-def paint_available(level: DeviceLevel, cfg: RenderConfig) -> bool:
-    """The paint path takes every level whose wall-piece textures fit
-    256x128 and are opaque, with an opaque sky, at any batch or height,
-    up to 1024 columns.  The tiled paint kernel takes any width, but the
-    pipeline decides the frame (the scan path packs rows in 8 bits), so
-    this bound stays where the port first set it.  Every other level or
-    screen takes the scan + resolve pipeline."""
-    return level.paint_ok and cfg.width <= 1024
+def paint_available(level: DeviceLevel, cfg: RenderConfig, B: int) -> bool:
+    """The paint path runs where the JAX package's does (JAX
+    frame.py:21-51, less its backend test): the config asks for it
+    (`use_pallas_paint`), the level's wall-piece textures fit 256x128
+    and are opaque with an opaque sky, the level's segs fit
+    `paint_max_segs` or a live-seg cap is set, the batch is a multiple
+    of 4 and the height of 8.  Every other config, level or screen takes
+    the scan + resolve pipeline, so one config draws the same frame and
+    counts the same pools in both packages."""
+    return (
+        cfg.use_pallas_paint
+        and level.paint_ok
+        and (level.num_segs <= cfg.paint_max_segs
+             or cfg.paint_live_capacity > 0)
+        and B % 4 == 0
+        and cfg.height % 8 == 0
+    )
 
 
 def _itempack_fits(level: DeviceLevel, cfg: RenderConfig) -> bool:
@@ -50,17 +60,12 @@ def _itempack_fits(level: DeviceLevel, cfg: RenderConfig) -> bool:
 def itempass_available(level: DeviceLevel, cfg: RenderConfig, B: int) -> bool:
     """The item-pass kernel draws the items when the config asks for it
     and the JAX package's conditions hold, so that one config draws the
-    same frame in both: the paint path with its batch, height and
-    seg-count terms (JAX paint_available, less its backend test), a level
+    same frame in both: the paint path (`paint_available`), a level
     whose sprite and mid pictures fit 128 x 128, and packs within
     _itempack_fits.  Otherwise the deferred pass runs."""
     return (
         cfg.use_item_pass_kernel
-        and paint_available(level, cfg)
-        and B % 4 == 0
-        and cfg.height % 8 == 0
-        and (level.num_segs <= cfg.paint_max_segs
-             or cfg.paint_live_capacity > 0)
+        and paint_available(level, cfg, B)
         and level.itempaint_ok
         and _itempack_fits(level, cfg)
     )
@@ -134,7 +139,7 @@ def render_walls_planes(
     camera-stage frame and order, the pools (the paint kernel's mid and
     clip pools, or the unified span pool) and counters, and the
     per-pixel light, dist and is_sky."""
-    if not paint_available(level, cfg):
+    if not paint_available(level, cfg, px.shape[0]):
         idx, light, dist, is_sky, aux = _stages_scan(
             level, cfg, px, py, angle, floor_height, sector_light, timestamp
         )
@@ -164,9 +169,10 @@ def render_frame(
     frame, plus the item counters items_dropped, item_overflow and
     item_block_dropped (0: there is no block-local emission)."""
     args = (px, py, angle, floor_height, sector_light, mobj_state)
-    if itempass_available(level, cfg, px.shape[0]):
+    B = px.shape[0]
+    if itempass_available(level, cfg, B):
         return _render_item_pass(level, cfg, *args, timestamp)
-    if not paint_available(level, cfg):
+    if not paint_available(level, cfg, B):
         idx, light, dist, is_sky, aux = _stages_scan(
             level, cfg, px, py, angle, floor_height, sector_light, timestamp
         )

@@ -1,7 +1,9 @@
 """Tests that need a CUDA card: the paint, item, item-pass and wall-scan
-kernels against their plain PyTorch versions, and render / render_walls
-on the card against the same calls on the CPU, on the paint path and on
-the scan + resolve pipeline.
+kernels against their plain PyTorch versions (on tall and wide screens
+too, and the paint kernel under a live-seg cap that drops segs), and
+render / render_walls on the card against the same calls on the CPU, on
+the paint path (`use_pallas_paint=True`) and on the scan + resolve
+pipeline.
 
 This file imports no JAX, so it also runs where there is a card and no
 JAX; the repo's conftest imports JAX, so leave it out there:
@@ -13,6 +15,8 @@ output (for the pools of the paint kernel and the wall scan: every slot
 below a column's count; the kernels do not write the slots past it,
 which nothing reads, tests/test_torch_pools.py).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -51,8 +55,9 @@ def cuda():
 @pytest.fixture(scope="module")
 def engines(cuda):
     wad = synth.demo_wad()
-    return (DoomEngine.from_wad_bytes(wad, "e1m1", device=cuda),
-            DoomEngine.from_wad_bytes(wad, "e1m1", device="cpu"))
+    cfg = RenderConfig(use_pallas_paint=True)
+    return (DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=cuda),
+            DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu"))
 
 
 def _state(eng, pos, ang):
@@ -132,6 +137,58 @@ def test_paint_kernel_on_tall_and_wide_screens(screen):
     for k, v in got.items():
         assert torch.equal(v, want[k]), k
     assert int(want["cnt_clip"].max()) > 0
+
+
+def test_scan_kernel_on_tall_and_wide_screens(screen):
+    eng, cfg, st, frame, order, _ = screen
+    cfg = dataclasses.replace(cfg, span_capacity=32)
+    rows, scnt = tp.build_rows(eng.level, frame, order)
+    got = ts.scan(eng.level, cfg, rows, scnt)
+    want = ts.scan_reference(eng.level, cfg, rows, scnt)
+    _assert_scan_equal(got, want, cfg.span_capacity)
+    assert int(want["cnt"].max()) > 0
+
+
+def test_itempass_kernel_on_tall_and_wide_screens(screen):
+    eng, cfg, st, frame, order, args = screen
+    out = tp.paint(eng.level, cfg, *args)
+    pack, _ = things.item_pack(eng.level, cfg, frame, order, st.pos[:, 0],
+                               st.pos[:, 1], st.angle, st.floor_height,
+                               st.sector_light, st.mobj_state)
+    fresh = lambda: dict(out, **{k: out[k].clone()
+                                 for k in ("idx", "ld", "rgb")})
+    got = tip.item_pass(eng.level, cfg, pack, fresh())
+    want = tip.item_pass_reference(eng.level, cfg, pack, fresh())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] != out["idx"]).sum()) > 0     # some item drew
+
+
+@pytest.mark.parametrize("percam", [True, False], ids=["percam", "union"])
+def test_paint_kernel_under_a_dropping_cap(cuda, percam):
+    """e1m1-scale, B=32 spread poses, paint_live_capacity 32: the paint
+    kernel skips the segs the drop mask names as its plain version
+    does."""
+    cfg = RenderConfig(mid_capacity=40, clip_capacity=64,
+                       paint_live_capacity=32, paint_percam_compact=percam)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=cuda)
+    st = _state(eng, *_spread(eng.tables, 32))
+    px, py = st.pos[:, 0], st.pos[:, 1]
+    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
+                                st.floor_height, st.sector_light,
+                                st.timestamp)
+    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    args = tp.build_inputs(eng.level, cfg, frame, order, st.angle, px, py,
+                           st.floor_height)
+    drop, dropped = tp.live_drop(cfg, args[0], args[1], order)
+    assert int(dropped) > 0
+    got = _below_count(tp.paint(eng.level, cfg, *args, drop))
+    want = _below_count(tp.paint_reference(eng.level, cfg, *args, drop))
+    for k, v in got.items():
+        assert torch.equal(v, want[k]), k
+    uncapped = tp.paint(eng.level, cfg, *args)
+    assert not torch.equal(got["idx"], uncapped["idx"])
 
 
 @pytest.mark.parametrize("case", ["clip", "clip=None", "atlas_rows=256"])
@@ -257,7 +314,8 @@ def test_render_walls_on_card_equals_cpu(engines):
 def test_render_on_card_equals_cpu(cuda, wad_fn):
     """Full frames, B=16 spread poses (the camera sort runs), pools deep
     enough to drop nothing."""
-    cfg = RenderConfig(mid_capacity=40, clip_capacity=64, item_capacity=24)
+    cfg = RenderConfig(mid_capacity=40, clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True)
     wad = getattr(synth, wad_fn)()
     gpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=cuda)
     cpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu")
@@ -308,20 +366,25 @@ def test_scan_kernel_equals_plain_version(cuda, case):
     torch.cuda.synchronize()
     assert ts.scan.launches == before + 1
     want = ts.scan_reference(eng.level, cfg, rows, scnt)
+    _assert_scan_equal(got, want, K)
+    assert (int(got["overflow"].sum()) > 0) == (K == 4)
+
+
+def _assert_scan_equal(got, want, K):
+    """cnt, overflow, and every pool plane below each column's count."""
     assert torch.equal(got["cnt"], want["cnt"])
     assert torch.equal(got["overflow"], want["overflow"])
-    below = (torch.arange(K, device=cuda)[None, :, None]
+    below = (torch.arange(K, device=got["cnt"].device)[None, :, None]
              < got["cnt"][:, None, :])
     for p in range(ts.POOL_PLANES):
         assert torch.equal(torch.where(below, got["pool"][p], 0),
                            torch.where(below, want["pool"][p], 0)), p
-    assert (int(got["overflow"].sum()) > 0) == (K == 4)
 
 
 def test_render_masked_on_card_equals_cpu(cuda):
     """The scan + resolve pipeline end to end, B=8 spread poses."""
     cfg = RenderConfig(span_capacity=64, mid_capacity=40, clip_capacity=64,
-                       item_capacity=24)
+                       item_capacity=24, use_pallas_paint=True)
     gpu, cpu = _masked_engine(cuda, cfg), _masked_engine("cpu", cfg)
     assert not gpu.level.paint_ok
     pos, ang = _spread(cpu.tables, 8)

@@ -1,6 +1,8 @@
 """The port end to end: doomtpu_torch DoomEngine.render and
-render_walls against the JAX DoomEngine on the CPU (the JAX engine's
-XLA path: wall_scan + resolve + the deferred pass + shade).
+render_walls on the paint path (`use_pallas_paint=True`) against the JAX
+DoomEngine on the CPU (the JAX engine's XLA path there: wall_scan +
+resolve + the deferred pass + shade; below row 255 the two pipelines
+draw the same frames, tests/test_torch_faults.py).
 
 - demo: B=16 spread poses, so the camera sort (B > 8) runs on both
   sides; the port's new_game state is moved across to a JAX GameState
@@ -9,8 +11,9 @@ XLA path: wall_scan + resolve + the deferred pass + shade).
 - e1m1-scale and doom1-asset-scale: B=4 at 160x96, pools deep enough
   that neither side drops a record;
 - the golden frames (tests/golden/frames.npz, demo and e1m1_scale): the
-  port's render_frame at the pinned poses equals the committed idx and
-  its rgb the committed hash.
+  port's render_frame on the paint path at the pinned poses (padded to a
+  batch of 4 with copies of the last) equals the committed idx and its
+  rgb the committed hash.
 
 Tolerance: exact equality of idx and rgb, and every capacity counter
 equal on both sides (0 here).
@@ -70,7 +73,9 @@ def _spread_poses(t, n, seed=0):
 def engines():
     wad = synth.demo_wad()
     return (JaxEngine.from_wad_bytes(wad, "e1m1"),
-            DoomEngine.from_wad_bytes(wad, "e1m1", device="cpu"))
+            DoomEngine.from_wad_bytes(
+                wad, "e1m1", config=RenderConfig(use_pallas_paint=True),
+                device="cpu"))
 
 
 def _states(te, n, seed=0):
@@ -157,7 +162,8 @@ def test_render_equals_jax(engines, states, jax_out):
 # mid 7, clip 36, item 9 on doom1-asset-scale), no deeper: the JAX
 # side's compile time grows with span_capacity
 MAP_CFG = RenderConfig(width=160, height=96, span_capacity=48,
-                       mid_capacity=40, clip_capacity=96, item_capacity=24)
+                       mid_capacity=40, clip_capacity=96, item_capacity=24,
+                       use_pallas_paint=True)
 
 
 COUNTERS = ("overflow", "live_dropped", "items_dropped", "item_overflow",
@@ -208,18 +214,22 @@ def test_render_equals_golden(name, info):
     _, _, ms = spawn_mobjs(mt, info)
     level = DeviceLevel.build(mt, assets, info, "cpu")
     cfg = RenderConfig(width=320, height=200, mid_capacity=40,
-                       clip_capacity=96, item_capacity=24)
+                       clip_capacity=96, item_capacity=24,
+                       use_pallas_paint=True)
     n = int(golden[f"{name}_n_views"])
-    views = np.stack([golden[f"{name}_{vi}_view"] for vi in range(n)])
+    views = np.stack([golden[f"{name}_{vi}_view"]
+                      for vi in list(range(n)) + [n - 1] * (-n % 4)])
+    n_b = len(views)
     f = lambda x: torch.as_tensor(np.asarray(x, np.float32))
     fh = [float(mt.sector_floor_h[mt.sector_at(v[0], v[1])]) for v in views]
     idx, rgb, aux = render_frame(
         level, cfg, f(views[:, 0]), f(views[:, 1]), f(views[:, 2]), f(fh),
         torch.as_tensor(np.repeat(np.asarray(mt.sector_light, np.int32)[None],
-                                  n, 0)),
-        torch.as_tensor(np.repeat(np.asarray(ms, np.int32)[None], n, 0)),
+                                  n_b, 0)),
+        torch.as_tensor(np.repeat(np.asarray(ms, np.int32)[None], n_b, 0)),
         f(views[:, 3]),
     )
+    assert "midpool" in aux                         # the paint path ran
     for k in ("overflow", "items_dropped", "item_overflow"):
         assert int(aux[k].sum()) == 0, k
     for vi in range(n):

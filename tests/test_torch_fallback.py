@@ -7,7 +7,10 @@ the golden frames.
 - single room with GRATE (transparent texels) on its solid walls, B=8;
 - e1m1-scale-masked (e1m1-scale with GRATE among its one-sided wall
   textures), B=4 at 160x96;
-- the demo at 1152x64, B=2: wider than the paint kernel's 1024 columns.
+- the demo at 1152x64, B=2: not a multiple of 4.
+
+Their configs ask for the paint path (`use_pallas_paint`), so what keeps
+each off it is the level or the batch.
 
 B <= 8 runs no camera sort, so one jitted JAX render_frame and
 render_walls_planes (the JAX engine's path on the CPU) give the frames
@@ -82,12 +85,14 @@ def _spread_poses(t, n, seed):
 CASES = {
     # name: (wad, config, batch)
     "grate-room": (grate_room_wad, RenderConfig(
-        width=160, height=100, span_capacity=8, item_capacity=16), 8),
+        width=160, height=100, span_capacity=8, item_capacity=16,
+        use_pallas_paint=True), 8),
     "e1m1-scale-masked": (synth.e1m1_scale_masked_wad, RenderConfig(
         width=160, height=96, span_capacity=40, mid_capacity=40,
-        clip_capacity=64, item_capacity=16), 4),
+        clip_capacity=64, item_capacity=16, use_pallas_paint=True), 4),
     "demo-1152": (synth.demo_wad, RenderConfig(
-        width=1152, height=64, span_capacity=8, item_capacity=16), 2),
+        width=1152, height=64, span_capacity=8, item_capacity=16,
+        use_pallas_paint=True), 2),
 }
 
 
@@ -105,7 +110,7 @@ def _engines(wad, cfg):
 def test_render_equals_jax_where_paint_is_unavailable(case):
     wad_fn, cfg, B = CASES[case]
     je, te = _engines(wad_fn(), cfg)
-    assert not tframe.paint_available(te.level, cfg)
+    assert not tframe.paint_available(te.level, cfg, B)
     pos, ang = _spread_poses(te.tables, B, seed=2)
     # the port's new_game, moved to JAX (tests/test_torch_camera.py holds
     # the two new_games equal)
@@ -148,21 +153,25 @@ def test_render_equals_jax_where_paint_is_unavailable(case):
 @pytest.fixture
 def forced_scan(monkeypatch):
     """The scan + resolve pipeline on every level."""
-    monkeypatch.setattr(tframe, "paint_available", lambda level, cfg: False)
+    monkeypatch.setattr(tframe, "paint_available",
+                        lambda level, cfg, B: False)
 
 
 def test_forced_scan_equals_paint_path(demo_level, monkeypatch):
-    cfg = RenderConfig(width=160, height=100, span_capacity=64,
-                       mid_capacity=40, clip_capacity=64, item_capacity=24)
+    # a height the paint path takes (a multiple of 8)
+    cfg = RenderConfig(width=160, height=96, span_capacity=64,
+                       mid_capacity=40, clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True)
     te = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", config=cfg,
                                    device="cpu")
-    assert tframe.paint_available(te.level, cfg)
+    assert tframe.paint_available(te.level, cfg, 16)
     pos, ang = _spread_poses(demo_level.tables, 16, seed=3)
     st = te.new_game(16, pos=pos, angle=ang,
                      generator=torch.Generator().manual_seed(0))
     painted = te.render(st), te.render_walls(st)
     assert set(te.render_counters(st).values()) == {0}
-    monkeypatch.setattr(tframe, "paint_available", lambda level, cfg: False)
+    monkeypatch.setattr(tframe, "paint_available",
+                        lambda level, cfg, B: False)
     before = tp.paint.launches
     scanned = te.render(st), te.render_walls(st)
     assert set(te.render_counters(st).values()) == {0}

@@ -66,7 +66,7 @@ VIEWS = [(384.0, 256.0, 0.0), (900.0, 256.0, 2.5), (300.0, 700.0, 4.6),
 # with span_capacity and item_capacity
 CFG = RenderConfig(width=160, height=96, span_capacity=40, mid_capacity=16,
                    clip_capacity=32, item_capacity=8,
-                   use_item_pass_kernel=True)
+                   use_item_pass_kernel=True, use_pallas_paint=True)
 
 
 def _spread(t, n, seed):
@@ -218,8 +218,7 @@ def test_item_pass_draws_what_the_pool_drops(e1m1):
 
 def test_itempass_available_agrees_with_jax(demo, e1m1, info, monkeypatch):
     """The port's branch test against JAX frame.itempass_available, whose
-    backend test is made to see an accelerator (the JAX paint path also
-    needs use_pallas_paint, which the port's paint path does not read)."""
+    backend test is made to see an accelerator."""
     import warnings
 
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
@@ -231,9 +230,11 @@ def test_itempass_available_agrees_with_jax(demo, e1m1, info, monkeypatch):
     d1 = DoomEngine.from_wad_bytes(synth.doom1_scale_wad(), "e1m1",
                                    device="cpu").level
     jd1 = _jax_level(synth.doom1_scale_wad(), info)
-    cfg = dataclasses.replace(CFG, use_pallas_paint=True)
+    cfg = CFG
     cases = [
         ("demo", demo.tl, demo.jl, cfg, 8, True),
+        ("demo, no use_pallas_paint", demo.tl, demo.jl,
+         dataclasses.replace(cfg, use_pallas_paint=False), 8, False),
         ("demo B=6", demo.tl, demo.jl, cfg, 6, False),
         ("demo, no flag", demo.tl, demo.jl,
          dataclasses.replace(cfg, use_item_pass_kernel=False), 8, False),
@@ -344,3 +345,21 @@ def test_wrapper_takes_plain_version_on_cpu_only(demo):
     with pytest.raises(ValueError):                 # a level K3 does not take
         tip.item_pass(dataclasses.replace(demo.tl, itempaint_ok=False), CFG,
                       pack, o)
+
+
+@pytest.mark.parametrize("kc, km", [(32, 16), (64, 40), (96, 40)])
+def test_itempass_tile_fits_every_height(kc, km):
+    """The item-pass kernel's tile (ops/itempass.itempass_tile): at every
+    height up to 1200 rows, at least one column whose 16-bit marks,
+    round terms, staged clip records and mid keys fit the shared memory
+    a Hopper block may use, within the block's threads; 32 columns and
+    16 bands at the bench's 200 rows, and at most 75 KB there, so that
+    three blocks share an SM."""
+    for H in range(1, 1201):
+        tc, bands = tip.itempass_tile(H, kc, km)
+        smem = tip.itempass_smem_bytes(tc, bands, H, kc, km)
+        assert tc >= 1 and bands >= 1, H
+        assert 2 * tc * H < smem <= tp.SMEM_BLOCK_BYTES, H
+        assert tc * bands <= tip.MAX_BLOCK_THREADS, H
+    assert tip.itempass_tile(200, 64, 40) == (32, 16)
+    assert tip.itempass_smem_bytes(32, 16, 200, 64, 40) <= 75 * 1024

@@ -6,9 +6,10 @@ that take the paint path's other branches:
   cycles, TEXTURE2), wall textures wider than 128 (the 256-texel column
   clamp) and sky-hack segs (no drawn ceiling).
 
-At 160x100 with pools deep enough that neither side drops a record (the
-JAX side's XLA path runs the span-pool scan, whose default capacity
-overflows on both maps).  Tolerance: exact equality of idx and rgb, and
+At 160x96 with pools deep enough that neither side drops a record (the
+config asks for the paint path, which the port takes; the JAX side on
+the CPU runs its XLA span-pool scan, whose default capacity overflows on
+both maps).  Tolerance: exact equality of idx and rgb, and
 every capacity counter 0 on both sides.
 """
 
@@ -26,6 +27,7 @@ from doomtpu.engine import DoomEngine as JaxEngine  # noqa: E402
 from doomtpu.sim.state import GameState as JaxState  # noqa: E402
 from doomtpu.wad import synth  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
+from doomtpu_torch.render import frame as tframe  # noqa: E402
 from doomtpu_torch.sim.state import state_from_numpy  # noqa: E402
 
 
@@ -42,8 +44,8 @@ def _one_torch_thread():
 # pools above both maps' uncapped peaks at these poses (span 65, mid 11,
 # clip 57 on the deep map), no deeper: the JAX side's compile time grows
 # with span_capacity
-CFG = RenderConfig(width=160, height=100, span_capacity=72,
-                   mid_capacity=32, clip_capacity=96)
+CFG = RenderConfig(width=160, height=96, span_capacity=72,
+                   mid_capacity=32, clip_capacity=96, use_pallas_paint=True)
 
 
 def _poses(t, n, seed):
@@ -65,6 +67,7 @@ def test_render_walls_equals_jax(wad_fn):
     je = JaxEngine.from_wad_bytes(wad, "e1m1", config=CFG)
     te = DoomEngine.from_wad_bytes(wad, "e1m1", config=CFG, device="cpu")
     lv = te.level
+    assert tframe.paint_available(lv, CFG, 4)
     if wad_fn == "deep_wad":
         assert lv.sub_path_nodes.shape[1] > 31
     else:

@@ -127,9 +127,13 @@ def test_wrapper_takes_plain_version_on_cpu_only(setup, config):
         tp.paint(tl, config, *meta)            # level on cpu, inputs on meta
     with pytest.raises(ValueError):
         tp.paint(tl, config, args[0].to(torch.int64), *args[1:])
-    with pytest.raises(NotImplementedError):
-        tp.render_paint(tl, dataclasses.replace(config, paint_live_capacity=16),
-                        frame, order, pa, px, py, fh)
+    with pytest.raises(ValueError):            # a drop mask of another shape
+        tp.paint(tl, config, *args, drop=torch.zeros(len(VIEWS), 1,
+                                                     dtype=torch.int32))
+    with pytest.raises(ValueError):            # drop bits for 32 blocks only
+        tp.render_paint(tl, dataclasses.replace(
+            config, width=4104, paint_live_capacity=16), frame, order,
+            pa, px, py, fh)
 
 
 
@@ -146,4 +150,5 @@ def test_paint_tile_fits_every_height():
         assert 6 * H * tc < tp.paint_smem_bytes(tc, bands, H), H
         assert tp.paint_smem_bytes(tc, bands, H) <= tp.SMEM_BLOCK_BYTES, H
         assert tc * bands <= tp.MAX_BLOCK_THREADS, H
+        assert tp.LIVE_BLOCK % tc == 0, H     # no tile straddles two blocks
     assert tp.paint_tile(200)[0] >= 32

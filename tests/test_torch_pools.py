@@ -42,10 +42,13 @@ def scene():
     """Engines for the deferred pass and the item pass, a state, and
     what each draws and counts unpoisoned."""
     wad = synth.demo_wad()
+    paint = RenderConfig(use_pallas_paint=True)
     engines = {
-        "deferred": DoomEngine.from_wad_bytes(wad, "e1m1", device="cpu"),
+        "deferred": DoomEngine.from_wad_bytes(wad, "e1m1", config=paint,
+                                              device="cpu"),
         "item pass": DoomEngine.from_wad_bytes(
-            wad, "e1m1", config=RenderConfig(use_item_pass_kernel=True),
+            wad, "e1m1", config=RenderConfig(use_pallas_paint=True,
+                                             use_item_pass_kernel=True),
             device="cpu"),
     }
     eng = engines["deferred"]
