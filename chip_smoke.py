@@ -27,7 +27,14 @@ fails:
   kernel, the resolve and the shade, then the item kernel;
 - e1m1-scale with use_item_pass_kernel: render through the paint kernel
   and the item-pass kernel, which draws every selected item (no item
-  pool, no item cap).
+  pool, no item cap);
+- e1m1-scale rollouts (DoomEngine.rollout, T=32 ticks of zero controls,
+  checksums, per-camera live lists under the live-seg cap), with and
+  without cross-tick live-list reuse: the paint and item kernels once a
+  tick, live_stale 0, equal checksums, every counter of the final state
+  0; then 16 cameras of moving controls through a reuse rollout (stale
+  segs, so the paint kernel reads drop bits the reuse set) and a scan +
+  resolve rollout (the wall-scan kernel), each against the CPU port.
 
 It checks their output against the CPU port on 16 cameras, then times
 them.  The cells also run the cost probes (the paint, item-pass and
@@ -212,18 +219,21 @@ def event_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
-def profile_render(call, state, card, plain_ms) -> None:
+def profile_render(call, state, card, plain_ms, what="one render",
+                   warm=True):
     """torch.profiler over one warm call: kernel launches, device busy
     time (the union of kernel intervals) and device time by op.  The
     device's idle share is given against the ms per batch measured
     without the profiler (`plain_ms`), whose own overhead on every
     launch would count as idle time, and against the profiled call's
-    wall time."""
+    wall time.  Returns (launches, busy ms, idle share).  warm=False:
+    the caller just ran `call`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    call(state)
+    if warm:
+        call(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -244,13 +254,14 @@ def profile_render(call, state, card, plain_ms) -> None:
     dev_ms = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0)) / 1e3
     top = sorted(stats, key=dev_ms, reverse=True)[:8]
-    log(f"profile of one render (torch.profiler): {launches} kernel "
+    log(f"profile of {what} (torch.profiler): {launches} kernel "
         f"launches, device busy {busy_ms:.3f} ms; device idle share "
         f"{1 - busy_ms / plain_ms:.4f} of the {plain_ms:.3f} ms per batch "
         f"without the profiler ({1 - busy_ms / wall_ms:.4f} of the "
         f"{wall_ms:.3f} ms wall time with it on)  [{card}]")
     log("  device ms by op: " + json.dumps(
         {e.key[:60]: round(dev_ms(e), 3) for e in top}))
+    return launches, busy_ms, 1 - busy_ms / plain_ms
 
 
 class Smoke:
@@ -1260,6 +1271,213 @@ def itempass_cell(s: Smoke) -> dict:
                          "bound_ms": bound_ms, "bound_by": bound_by}}
 
 
+# control masks of the moving rollouts (sim/player.py's bits): walk, turn,
+# strafe, back up and run, one a camera in turn
+MOVES = (1, 1 | 4, 1 | 8, 2, 16 | 4, 1 | 32, 4, 16 | 8 | 32)
+
+
+def moving_rollout(dev, cfg, live_reuse, n=16, ticks=4, seed=3):
+    """An n-camera rollout of `ticks` ticks of moving controls on
+    e1m1-scale under `cfg`, on the card and through the CPU port, with
+    the same light draws.  Returns (differing elements per output: the
+    final state field by field and the idx frames; the card's
+    live_stale; the CPU port's; the card's kernel launches)."""
+    import numpy as np
+    import torch
+
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.ops import itempass, items, paint, scan
+    from doomtpu_torch.wad import synth
+
+    kernels = {"paint": paint.paint, "items": items.composite_items,
+               "scan": scan.scan, "itempass": itempass.item_pass}
+    wad = synth.e1m1_scale_wad()
+    card = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=dev)
+    cpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu")
+    pos, ang = spread_poses(card.tables, n, seed)
+    controls = np.resize(np.asarray(MOVES, np.int32), (ticks, n))
+    draws = torch.randint(0, 1 << 30, (ticks, 2, n, card.level.num_sectors),
+                          generator=torch.Generator().manual_seed(seed),
+                          dtype=torch.int32)
+    runs = []
+    for eng in (card, cpu):
+        st = eng.new_game(n, pos=pos, angle=ang,
+                          generator=torch.Generator().manual_seed(seed))
+        for fn in kernels.values():
+            fn.launches = 0
+        r = eng.rollout(st, controls, draws=draws, live_reuse=live_reuse)
+        if eng is card:
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in kernels.items()}
+        runs.append(r)
+    (fc, frames_c, *stale_c), (fp, frames_p, *stale_p) = runs
+    diffs = {f.name: (getattr(fc, f.name).cpu() != getattr(fp, f.name)).sum()
+             .item() for f in dataclasses.fields(fc)}
+    diffs["frames"] = (frames_c.cpu() != frames_p).sum().item()
+    stale = lambda x: int(x[0]) if x else None
+    return diffs, stale(stale_c), stale(stale_p), launches
+
+
+def rollout_cell(s: Smoke) -> None:
+    """e1m1-scale rollouts, as bench.py's rollout cell runs them
+    (bench.py:208-280): T=32 ticks of zero controls, checksums, per-camera
+    live lists under the cap `livecap_cell` sets, with and without
+    cross-tick live-list reuse; each tick renders through K1 and K2.
+    Then a 16-camera rollout of moving controls with reuse (live_stale >
+    0, so K1 reads drop bits set by the reuse) and one on the scan path
+    (K4), each against the CPU port."""
+    import torch
+
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.render import camera as cam
+    from doomtpu_torch.render.camsort import sort_state
+    from doomtpu_torch.sim import player, thinkers
+    from doomtpu_torch.wad import synth
+
+    phase("e1m1-scale: the rollout")
+    T = 32
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True, paint_percam_compact=True)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=s.dev)
+    state = s.new_game(eng, B)
+    sp, _ = sort_state(state)
+    _, order, args = s.stage_inputs(eng, sp)
+    _, _, cnt = s.paint.live_lists(cfg, args[0], args[1], order)
+    cfg = dataclasses.replace(cfg, paint_live_capacity=-(-(int(cnt.max())
+                                                           + 1) // 32) * 32)
+    eng = dataclasses.replace(eng, config=cfg)
+    del sp, order, args, cnt
+    log(f"config: {cfg.width}x{cfg.height} B={B} T={T} zero controls, "
+        f"return_frames=False, paint_live_capacity "
+        f"{cfg.paint_live_capacity} per camera")
+    controls = torch.zeros((T, B), dtype=torch.int32, device=s.dev)
+    gen = torch.Generator(s.dev).manual_seed(0)
+    sec = eng.level.num_sectors
+    draws = torch.stack([thinkers.draw_lights(gen, B, sec) for _ in range(T)])
+    run = {True: lambda st: eng.rollout(st, controls, draws=draws,
+                                        return_frames=False, live_reuse=True),
+           False: lambda st: eng.rollout(st, controls, draws=draws,
+                                         return_frames=False)}
+    sums = {}
+    for reuse in (True, False):
+        what = f"rollout live_reuse={reuse}"
+        s.zero_counts()
+        out = run[reuse](state)
+        torch.cuda.synchronize()
+        got = s.counts()
+        log(f"main path {what} B={B} T={T}: launches {got}; per tick "
+            + json.dumps({k: v / T for k, v in got.items()}))
+        check(got == {"paint": T, "items": T, "scan": 0, "itempass": 0},
+              f"{what}: launches {got}, want K1 and K2 once a tick")
+        final, sums[reuse] = out[0], out[1]
+        check(tuple(sums[reuse].shape) == (T, B)
+              and int(final.tick[0]) == T, f"{what}: output shapes")
+        if reuse:
+            stale = int(out[2])
+            log(f"{what}: live_stale {stale}")
+            check(stale == 0, f"{what}: live_stale {stale} with zero controls")
+        counters = eng.render_counters(final)
+        log(f"render_counters of the final state ({what}): {counters}")
+        check(all(v == 0 for v in counters.values()),
+              f"{what}: capacity counters not 0: {counters}")
+    check(torch.equal(sums[True], sums[False]),
+          "the reuse and no-reuse rollouts' checksums differ")
+    # timed in turns, reuse / plain / plain / reuse, a rollout each
+    times, peaks = {True: [], False: []}, {True: 0.0, False: 0.0}
+    for reuse in (True, False, False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run[reuse](state)
+        torch.cuda.synchronize()
+        times[reuse].append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(out[1], sums[reuse]),
+              f"rollout live_reuse={reuse}: checksums moved between runs")
+        peaks[reuse] = max(peaks[reuse],
+                           torch.cuda.max_memory_allocated() / 2 ** 30)
+    for reuse in (True, False):
+        ms = sum(times[reuse]) / 2
+        log(f"rollout live_reuse={reuse} 320x200 B={B} T={T}: {ms:.3f} ms "
+            f"a rollout ({' and '.join(f'{t:.3f}' for t in times[reuse])}),"
+            f" {ms / T:.3f} ms a tick, {T * B / ms * 1e3:.1f} step+render "
+            f"frames/s, peak {peaks[reuse]:.2f} GiB, checksum "
+            f"{int(sums[reuse].sum())}  [{s.card}]")
+    ms = sum(times[True]) / 2
+    launches, busy, idle = profile_render(
+        run[True], state, s.card, ms, "one rollout (live_reuse)", warm=False)
+    log(f"rollout live_reuse=True: {launches / T:.1f} kernel launches a "
+        f"tick, device busy {busy / T:.3f} ms a tick, idle share "
+        f"{idle:.4f}  [{s.card}]")
+
+    # where a tick's time goes: the tick, and the stages reuse swaps
+    # (CUDA events, on the Morton-sorted batch)
+    sp, _ = sort_state(state)
+    lvl = eng.level
+    px, py = sp.pos[:, 0], sp.pos[:, 1]
+    rank = cam.traversal_rank(lvl, px, py)
+    order = cam.seg_order(lvl, rank)
+    frame = cam.build_seg_frame(lvl, cfg, px, py, sp.angle, sp.floor_height,
+                                sp.sector_light, sp.timestamp)
+    rows, scnt = s.paint.build_rows(lvl, frame, order)
+    kept = s.paint.kept_set(cfg, rows, scnt, order)
+    stage = {
+        "tick": event_ms(lambda: eng.tick(sp, controls[0], draws=draws[0]),
+                         5),
+        "tick: move_player": event_ms(lambda: player.move_player(
+            lvl, sp.pos, sp.angle, controls[0]), 5),
+        "tick: lights + mobjs": event_ms(lambda: (
+            thinkers.step_lights(eng.thinkers, sp.sector_light,
+                                 sp.light_count, sp.light_up, draws[0]),
+            thinkers.step_mobjs(lvl, sp.mobj_state, sp.mobj_tics)), 5),
+        "traversal_rank": event_ms(
+            lambda: cam.traversal_rank(lvl, px, py), 5),
+        "seg_order (fresh tick)": event_ms(
+            lambda: cam.seg_order(lvl, rank), 5),
+        "order_matches_rank (reuse tick)": event_ms(
+            lambda: cam.order_matches_rank(lvl, rank, order), 5),
+        "live_drop (fresh tick)": event_ms(
+            lambda: s.paint.live_drop(cfg, rows, scnt, order), 5),
+        "kept_set (refresh tick)": event_ms(
+            lambda: s.paint.kept_set(cfg, rows, scnt, order), 5),
+        "reuse_drop (reuse tick)": event_ms(
+            lambda: s.paint.reuse_drop(cfg, rows, scnt, order, kept), 5),
+    }
+    log(f"stages of a rollout tick at B={B} (CUDA events, ms): "
+        + json.dumps({k: round(v, 4) for k, v in stage.items()})
+        + f"  [{s.card}]")
+    log(f"tick alone at B={B} (CUDA events): {stage['tick']:.4f} ms  "
+        f"[{s.card}]")
+    del state, sp, draws, sums, out, frame, rows, kept
+
+    # moving cameras: reuse with stale segs (K1's drop bits set by the
+    # reuse), then the scan path (K4), 16 cameras against the CPU port
+    for label, c, reuse, want in (
+            ("paint, live_reuse", cfg, True, {"paint": 4, "items": 4}),
+            ("scan + resolve", dataclasses.replace(
+                cfg, use_pallas_paint=False, span_capacity=96), False,
+             {"scan": 4, "items": 4})):
+        t0 = time.perf_counter()
+        diffs, stale, stale_cpu, got = moving_rollout(s.dev, c, reuse)
+        log(f"moving rollout B=16 T=4 {label} vs the CPU port "
+            f"({time.perf_counter() - t0:.1f} s): differing elements "
+            f"{json.dumps(diffs)}; live_stale {stale} (CPU {stale_cpu}); "
+            f"launches {got}")
+        check(all(v == 0 for v in diffs.values()),
+              f"moving rollout {label}: card and CPU port disagree")
+        check(stale == stale_cpu, f"moving rollout {label}: live_stale "
+              f"{stale} on the card, {stale_cpu} on the CPU")
+        check(all(got[k] == want.get(k, 0) for k in got),
+              f"moving rollout {label}: launches {got}, want {want}")
+        # more stale than cameras whose order went stale: the paint
+        # stage's own term, the drop bits, is not 0
+        check(not reuse or stale > 16 * 3,
+              f"moving rollout {label}: live_stale {stale}, no drop bit "
+              f"set by the reuse")
+
+
 def resource_report(s: Smoke, libs) -> dict:
     """The resources of every kernel library built (the TPU probe
     scripts/probe_mosaic_layout.py asked which layouts Mosaic takes; on
@@ -1552,6 +1770,8 @@ def main() -> int:
     r_scan = scan_cell(s)
     torch.cuda.empty_cache()
     r_ip = itempass_cell(s)
+    torch.cuda.empty_cache()
+    rollout_cell(s)
     phase("done")
 
     check(not any(m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -4,6 +4,8 @@
                                  config=RenderConfig(use_pallas_paint=True))
     state = engine.new_game(batch=2048, generator=torch.Generator("cuda"))
     idx, rgb = engine.render(state)                  # [B, H, W]
+    state = engine.tick(state, controls)             # one 35 Hz tick
+    state, frames = engine.rollout(state, controls_seq)
 
 Counterpart of doomtpu/engine.py.  The engine runs on the CUDA card
 unless the caller passes device="cpu" (where the kernels' plain PyTorch
@@ -16,14 +18,16 @@ allow it, else from the wall-scan kernel and the resolve
 takes the same pipeline in both).  With `use_item_pass_kernel=True` as
 well, an eligible level's sprites and masked mids come from the
 item-pass kernel, which draws every selected item (no item pool, no
-item_capacity cap).  The simulation and calibration come with later
-slices and raise NotImplementedError until then.
+item_capacity cap).  `tick` and `rollout` step the simulation; a
+rollout renders every tick through the same pipeline.  Calibration
+comes with a later slice and raises NotImplementedError until then.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
+import numpy as np
 import torch
 
 from doomtpu_torch.assets.bundle import LevelAssets
@@ -35,8 +39,9 @@ from doomtpu_torch.wad.reader import WadFile
 from doomtpu_torch.render.camsort import sort_state, unsort_out
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.frame import render_frame, render_walls_planes
-from doomtpu_torch.sim.state import GameState
-from doomtpu_torch.sim.thinkers import ThinkerTables
+from doomtpu_torch.sim import step as step_mod
+from doomtpu_torch.sim.state import GameState, state_from_numpy
+from doomtpu_torch.sim.thinkers import ThinkerTables, draw_lights
 
 
 @dataclass(eq=False)
@@ -49,12 +54,13 @@ class DoomEngine:
     thinkers: ThinkerTables
     config: RenderConfig
     device: torch.device
+    turbo: float = 1.0
 
     @classmethod
     def from_wad_bytes(
         cls, data: bytes, map_name: str = "e1m1",
         config: RenderConfig | None = None, device="cuda",
-        require_iwad: bool = False,
+        require_iwad: bool = False, turbo: float = 1.0,
     ) -> "DoomEngine":
         device = torch.device(device)
         wad = WadFile(data, require_iwad=require_iwad)
@@ -65,7 +71,7 @@ class DoomEngine:
             wad=wad, tables=tables, assets=assets, info=info,
             level=DeviceLevel.build(tables, assets, info, device),
             thinkers=ThinkerTables.build(tables, info, device),
-            config=config or RenderConfig(), device=device,
+            config=config or RenderConfig(), device=device, turbo=turbo,
         )
 
     @classmethod
@@ -133,11 +139,117 @@ class DoomEngine:
         _, aux = self._render(state, items=False)
         return {k: int(aux[k].sum()) for k in ("overflow", "live_dropped")}
 
-    def tick(self, state: GameState, controls, generator=None):
-        raise NotImplementedError("the simulation is not ported yet")
+    # ---- the simulation ----------------------------------------------------
+    def _controls(self, controls) -> torch.Tensor:
+        if not isinstance(controls, torch.Tensor):
+            controls = torch.as_tensor(np.asarray(controls, np.int32))
+        return controls.to(self.device, torch.int32)
 
-    def rollout(self, state: GameState, controls_seq, generator=None):
-        raise NotImplementedError("the simulation is not ported yet")
+    def _generator(self, generator):
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        return generator
+
+    def tick(self, state: GameState, controls, generator=None,
+             draws=None) -> GameState:
+        """One 35 Hz tick of `controls` [B] (sim/player.py's bitmask).
+        The light step's randomness: `draws` [2, B, SEC] i32 in [0, 2^30)
+        (the JAX package's two randint draws of split(key)), else drawn
+        from `generator` (on the engine's device; a new one seeded 0
+        when None, so repeated calls draw the same)."""
+        if draws is None:
+            draws = draw_lights(self._generator(generator), state.batch,
+                                self.level.num_sectors)
+        return step_mod.tick(self.level, self.thinkers, state,
+                             self._controls(controls), draws.to(self.device),
+                             self.turbo)
+
+    def rollout(self, state: GameState, controls_seq, generator=None,
+                draws=None, return_frames: bool = True,
+                max_ticks_per_jit: int = 32, live_reuse: bool = False):
+        """T ticks of step and render: `controls_seq` [T, B]; `draws`
+        [T, 2, B, SEC] (tick t takes draws[t]), else each tick draws from
+        `generator` (seeded 0 when None).  Returns (final state, frames
+        [T, B, H, W] i32) or, with return_frames=False, [T, B] int64
+        checksums (each frame's idx summed).
+
+        live_reuse=True (the paint + deferred pipeline with per-camera
+        live lists) renders the first tick of every segment of
+        `max_ticks_per_jit` ticks (0: one segment) fresh and reuses its
+        traversal order, camera permutation and kept live set for the
+        rest of the segment (sim/step.rollout), and returns a third
+        element, the summed live_stale: 0 proves the frames equal
+        live_reuse=False's.  In the JAX package the segments are its
+        jitted scans; here the argument is only the refresh interval,
+        kept so that frames and live_stale equal JAX's engine.rollout
+        for the same value."""
+        controls_seq = self._controls(controls_seq)
+        T = controls_seq.shape[0]
+        if draws is None:
+            g = self._generator(generator)
+            sec = self.level.num_sectors
+            draw = lambda t: draw_lights(g, state.batch, sec).to(self.device)
+        else:
+            draws = torch.as_tensor(draws).to(self.device)
+            draw = lambda t: draws[t]
+        S = max_ticks_per_jit if 0 < max_ticks_per_jit < T else T
+        outs = []
+        stale = torch.zeros((), dtype=torch.int32, device=self.device)
+        for s0 in range(0, T, S) if T else (0,):
+            r = step_mod.rollout(
+                self.level, self.thinkers, self.config, state,
+                controls_seq[s0:s0 + S], lambda t, s0=s0: draw(s0 + t),
+                return_frames=return_frames, live_reuse=live_reuse,
+                turbo=self.turbo)
+            state = r[0]
+            outs.append(r[1])
+            if live_reuse:
+                stale = stale + r[2]
+        frames = torch.cat(outs)
+        if live_reuse:
+            return state, frames, stale
+        return state, frames
+
+    def kill_everything(self, state: GameState) -> GameState:
+        return step_mod.kill_everything(self.level, state)
+
+    def explode_everything(self, state: GameState) -> GameState:
+        return step_mod.explode_everything(self.level, state)
+
+    def respawn_everything(self, state: GameState) -> GameState:
+        return step_mod.respawn_everything(self.level, state)
 
     def calibrate(self, states):
         raise NotImplementedError("calibration is not ported yet")
+
+    # ---- state API ----------------------------------------------------------
+    def player_position_json(self, state: GameState, env: int = 0) -> str:
+        """Re-runnable --player-position JSON (game.rs:376-384)."""
+        import json
+
+        pos = state.pos[env].cpu()
+        return json.dumps({
+            "position": {"x": float(pos[0]), "y": float(pos[1])},
+            "angle": float(state.angle[env]),
+        })
+
+    def save_state(self, state: GameState, path: str) -> None:
+        """Checkpoint the full simulation state (every thinker counter,
+        mobj state and camera) as npz, one array a GameState field under
+        its name, as the JAX package saves it: a checkpoint of either
+        package loads in the other."""
+        np.savez(path, **{f.name: getattr(state, f.name).cpu().numpy()
+                          for f in fields(state)})
+
+    def load_state(self, path: str) -> GameState:
+        """A GameState from `save_state`'s npz, on the engine's device."""
+        with np.load(path) as data:
+            return state_from_numpy(dict(data.items()), self.device)
+
+    def map_2d(self, state: GameState, env: int = 0) -> np.ndarray:
+        """The overhead map of camera `env`: [H, W, 3] u8 (game.rs:229-309)."""
+        from doomtpu_torch.render.map2d import render_map_2d
+
+        pos = state.pos[env].cpu()
+        return render_map_2d(self.tables, self.config, float(pos[0]),
+                             float(pos[1]), float(state.angle[env]))

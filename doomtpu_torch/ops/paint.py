@@ -195,26 +195,76 @@ def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
 
 
 def render_paint(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
-                 angle, px, py, floor_height) -> dict:
+                 angle, px, py, floor_height, reuse: dict | None = None,
+                 want_reuse: bool = False) -> dict:
     """Run the paint stage over B cameras.
 
     Returns idx/ld/rgb [B, H, W], the mid pool (7 x [B, W, KM]), cnt_mid,
     the clip pool (7 x [B, W, KC]), cnt_clip, overflow [B, 2] (mid,
     clip), live_dropped (the live segs `paint_live_capacity` dropped,
-    `live_drop`) and live_stale (0: there is no cross-tick reuse).  ld
-    packs light(8)<<16 | dist(u16) | written<<24 | sky<<25.
+    `live_drop`) and live_stale.  ld packs light(8)<<16 | dist(u16) |
+    written<<24 | sky<<25.
+
+    Cross-tick live-list reuse (JAX pallas_paint.py:1396-1420, per-camera
+    lists only): `want_reuse=True` adds out["reuse"], the refresh tick's
+    KEPT live set, {"kept": [B, G, NBW] bool by seg index, "live_dropped"}:
+    live in a 128-column block and not dropped by the cap.  Passed back
+    as `reuse` on a later tick (the same camera order, the traversal order
+    of the refresh tick), every seg live now and absent from the kept set
+    gets its drop bit, and live_stale counts those (camera, seg, block)
+    triples; live_dropped is the refresh tick's.  JAX visits the segs of
+    the kept set in the given order and masks those dead now with its
+    per-camera checks; this visits the segs active now in the given order
+    less the dropped ones: the same segs in the same order, so the same
+    frame and pools, stale or not.  live_stale == 0 proves the kept set
+    held every live seg, so the frame is the one a fresh tick draws.  The
+    mask is built even where no cap is set: a seg live now and not at the
+    refresh tick is not drawn, as in JAX.
     """
     if not level.paint_ok:
         raise ValueError("level not eligible for the paint kernel "
                          "(wall-piece textures > 256x128 or transparent)")
+    if (reuse is not None or want_reuse) and not cfg.paint_percam_compact:
+        raise ValueError("live-list reuse needs per-camera live lists "
+                         "(paint_percam_compact)")
     rows, scnt, camf, cami = build_inputs(
         level, cfg, frame, order, angle, px, py, floor_height
     )
-    drop, live_dropped = live_drop(cfg, rows, scnt, order)
+    if reuse is None:
+        drop, live_dropped = live_drop(cfg, rows, scnt, order)
+        live_stale = torch.zeros((), dtype=I32, device=rows.device)
+    else:
+        drop, live_stale = reuse_drop(cfg, rows, scnt, order, reuse["kept"])
+        live_dropped = reuse["live_dropped"]
     out = paint(level, cfg, rows, scnt, camf, cami, drop)
     out["live_dropped"] = live_dropped
-    out["live_stale"] = torch.zeros((), dtype=I32, device=rows.device)
+    out["live_stale"] = live_stale
+    if want_reuse:
+        out["reuse"] = {"kept": kept_set(cfg, rows, scnt, order),
+                        "live_dropped": live_dropped}
     return out
+
+
+def kept_set(cfg: RenderConfig, rows, scnt, order) -> torch.Tensor:
+    """[B, G, NBW] bool by seg index: the segs live in each 128-column
+    block and kept by the cap (`live_lists`, `live_capacity`), per
+    camera: JAX's `live_kept` (pallas_paint.py:1697-1712)."""
+    live, rank, _ = live_lists(cfg, rows, scnt, order)
+    gc = live_capacity(cfg, order.shape[1])
+    kept = live if gc is None else live & (rank <= gc)
+    seg = rows[..., R_G].long()[..., None].expand_as(kept)
+    return torch.zeros_like(kept).scatter_(1, seg, kept)
+
+
+def reuse_drop(cfg: RenderConfig, rows, scnt, order, kept):
+    """(drop [B, G] i32, live_stale i32 scalar) of a tick that reuses an
+    earlier tick's `kept_set`: bit w of drop[b, k] where row k of camera
+    b is live in block w now and its seg is not kept there; live_stale
+    counts those (camera, seg, block) triples."""
+    live, _, _ = live_lists(cfg, rows, scnt, order)
+    seg = rows[..., R_G].long()[..., None].expand_as(live)
+    stale = live & ~torch.gather(kept, 1, seg)
+    return drop_bits(cfg, stale), stale.sum(dtype=I32)
 
 
 # the JAX kernel's live lists: 128-column blocks, and a capacity rounded
@@ -283,16 +333,22 @@ def live_drop(cfg: RenderConfig, rows, scnt, order):
     gc = live_capacity(cfg, order.shape[1])
     if gc is None:
         return None, torch.zeros((), dtype=I32, device=rows.device)
-    nbw = -(-cfg.width // LIVE_BLOCK)
-    if nbw > 32:
-        raise ValueError(f"paint_live_capacity: {cfg.width} columns make "
-                         f"{nbw} live-list blocks; the drop mask holds 32")
     live, rank, cnt = live_lists(cfg, rows, scnt, order)
-    dropped = live & (rank > gc)
-    drop = torch.zeros(rows.shape[:2], dtype=I32, device=rows.device)
+    drop = drop_bits(cfg, live & (rank > gc))
+    return drop, (cnt - gc).clamp(min=0).sum().to(I32)
+
+
+def drop_bits(cfg: RenderConfig, dropped) -> torch.Tensor:
+    """[B, G] i32 drop mask from dropped [B, G, NBW]: bit w of drop[b, k]
+    set where row k of camera b is dropped at 128-column block w."""
+    nbw = dropped.shape[-1]
+    if nbw > 32:
+        raise ValueError(f"paint: {cfg.width} columns make {nbw} live-list "
+                         f"blocks; the drop mask holds 32")
+    drop = torch.zeros(dropped.shape[:2], dtype=I32, device=dropped.device)
     for w in range(nbw):                       # bit 31 wraps to the sign
         drop |= dropped[..., w].to(I32) << w
-    return drop, (cnt - gc).clamp(min=0).sum().to(I32)
+    return drop
 
 
 def pools_from_paint(out_or_aux: dict):

@@ -75,6 +75,29 @@ def seg_order(level: DeviceLevel, rank):
     return torch.argsort(rank[:, sub], dim=1, stable=True).to(I32)
 
 
+def order_matches_rank(level: DeviceLevel, rank, order) -> torch.Tensor:
+    """[B] bool: is `order` exactly what seg_order(level, rank) gives?
+    True where, along `order`, the seg rank never falls and seg indices
+    ascend within equal ranks: the defining property of the stable
+    rank-argsort, checked with one gather and compares (no argsort).  A
+    camera that crossed a BSP partition since `order` was taken fails.
+    A (hi, lo) rank compares lexicographically, as seg_order sorts."""
+    sub = level.seg_sub.long()
+    o = order.long()
+    if isinstance(rank, tuple):
+        hi, lo = rank
+        rh = torch.gather(hi[:, sub], 1, o)
+        rl = torch.gather(lo[:, sub], 1, o)
+        lt = (rh[:, :-1] < rh[:, 1:]) | (
+            (rh[:, :-1] == rh[:, 1:]) & (rl[:, :-1] < rl[:, 1:]))
+        eq = (rh[:, :-1] == rh[:, 1:]) & (rl[:, :-1] == rl[:, 1:])
+    else:
+        r = torch.gather(rank[:, sub], 1, o)
+        lt = r[:, :-1] < r[:, 1:]
+        eq = r[:, :-1] == r[:, 1:]
+    return (lt | (eq & (order[:, :-1] < order[:, 1:]))).all(dim=1)
+
+
 # ---------------------------------------------------------------------------
 # FOV clip (misc.rs:13-115), vectorized
 # ---------------------------------------------------------------------------

@@ -122,11 +122,14 @@ class DeviceLevel:
     state_frame: torch.Tensor       # [NS] i32
     state_full_bright: torch.Tensor  # [NS] bool
     state_tics: torch.Tensor        # [NS] i32
+    state_next: torch.Tensor        # [NS] i32
     # --- map objects (static placement; the state lives in GameState) -------
     mobj_pos: torch.Tensor          # [MO,2] f32
     mobj_angle: torch.Tensor        # [MO] f32
     mobj_sector: torch.Tensor       # [MO] i32
     mobj_spawn_state: torch.Tensor  # [MO] i32
+    mobj_death_state: torch.Tensor  # [MO] i32 (0: no death state)
+    mobj_xdeath_state: torch.Tensor  # [MO] i32 (0: no extreme death)
     # segs with a drawable two-sided middle texture (the masked mids)
     dseg_ix: torch.Tensor           # [D] i32
 
@@ -336,10 +339,13 @@ class DeviceLevel:
             state_frame=info.state_frame,
             state_full_bright=info.state_full_bright,
             state_tics=info.state_tics,
+            state_next=info.state_next,
             mobj_pos=mobj_pos,
             mobj_angle=t.thing_angle[ids],
             mobj_sector=mobj_sector,
             mobj_spawn_state=info.mobj_spawn[mobj_info_ix],
+            mobj_death_state=info.mobj_death[mobj_info_ix],
+            mobj_xdeath_state=info.mobj_xdeath[mobj_info_ix],
             dseg_ix=dseg_ix,
             tex_sizes_pow2=bool(
                 np.all((a.tex_w & (a.tex_w - 1)) == 0)

@@ -160,6 +160,7 @@ def render_frame(
     sector_light,                          # [B, SEC]
     mobj_state,                            # [B, MO]
     timestamp,                             # [B]
+    reuse: dict | None = None, want_reuse: bool = False,
 ):
     """The full frame: walls, planes, sky, sprites, masked mids.
 
@@ -167,9 +168,23 @@ def render_frame(
     [B,H,W] packed 0xRRGGBB i32, aux).  aux carries what
     render_walls_planes' does, with light / dist / is_sky of the final
     frame, plus the item counters items_dropped, item_overflow and
-    item_block_dropped (0: there is no block-local emission)."""
+    item_block_dropped (0: there is no block-local emission).
+
+    Cross-tick live-list reuse (JAX frame.py:76-119, 178-205), on the
+    paint + deferred pipeline with per-camera live lists only (else
+    ValueError): `want_reuse` adds aux["reuse"], this tick's traversal
+    order and kept live set (ops/paint.py::render_paint); passed back as
+    `reuse`, a later tick draws in that order with that set, and
+    aux["live_stale"] adds the cameras whose reused order is not the
+    one their pose gives (camera.order_matches_rank) to the paint
+    stage's count.  0 proves the frame is the one a fresh tick draws."""
     args = (px, py, angle, floor_height, sector_light, mobj_state)
     B = px.shape[0]
+    if (reuse is not None or want_reuse) and (
+            not paint_available(level, cfg, B)
+            or itempass_available(level, cfg, B)):
+        raise ValueError("live-list reuse needs the paint + deferred "
+                         "pipeline")
     if itempass_available(level, cfg, B):
         return _render_item_pass(level, cfg, *args, timestamp)
     if not paint_available(level, cfg, B):
@@ -185,12 +200,23 @@ def render_frame(
         pools = things.pools_from_unified(aux["pool"], aux["cnt"],
                                           aux["frame"])
     else:
-        frame, order = _frame_and_order(level, cfg, px, py, angle,
-                                        floor_height, sector_light, timestamp)
+        frame = cam.build_seg_frame(level, cfg, px, py, angle, floor_height,
+                                    sector_light, timestamp)
+        rank = cam.traversal_rank(level, px, py)
+        order_stale = 0
+        if reuse is None:
+            order = cam.seg_order(level, rank)
+        else:
+            order = reuse["order"]
+            order_stale = (~cam.order_matches_rank(level, rank, order)).sum(
+                dtype=I32)
         out = render_paint(level, cfg, frame, order, angle, px, py,
-                           floor_height)
+                           floor_height, reuse=reuse, want_reuse=want_reuse)
         idx, ld, rgb = out["idx"], out["ld"], out["rgb"]
         aux = _aux_paint(frame, order, out)
+        aux["live_stale"] = out["live_stale"] + order_stale
+        if want_reuse:
+            aux["reuse"] = dict(out["reuse"], order=order)
         pools = things.pools_from_paint(out)
     idx, ld, rgb, daux = things.deferred_pass(
         level, cfg, aux["frame"], pools, aux["order"], *args, idx, ld, rgb,

@@ -1,9 +1,17 @@
-"""Sector-light thinker tables (counterpart of doomtpu/sim/thinkers.py).
+"""The thinkers, vectorized (counterpart of doomtpu/sim/thinkers.py).
 
-This package holds the table build and the initial countdowns; the step
-functions come with the simulation.  Randomness takes an explicit
-`torch.Generator`: it cannot reproduce JAX's threefry draws, so parity
-tests move a JAX GameState across with `state_from_numpy` instead.
+Sector light specials are per-sector parameter tables built once on the
+host plus a pure step over [B, SEC] state; the map-object state machine
+is a pure step over [B, MO].  Randomness is explicit: the light step
+takes its two [B, SEC] draws as arguments (`draw_lights` makes them
+from a `torch.Generator`).  The port cannot reproduce JAX's threefry
+draws, so parity tests feed it JAX's draws and move a JAX GameState
+across with `state_from_numpy`.  JAX's `%` floors, as torch.remainder
+does; every draw and divisor here is non-negative anyway.
+
+Sector specials handled (thinkers.rs:14-80):
+    1 flicker  2 strobe fast  3 strobe slow  4 strobe fast (slime)
+    8 glow  12 strobe slow sync  13 strobe fast sync  17 fire flicker
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 
 from doomtpu_torch.info.tables import InfoTables
 from doomtpu_torch.level.tables import MapTables
+from doomtpu_torch.render.device import DeviceLevel
 
 # lights.rs:9-13
 SLOW_DARK = 35
@@ -115,3 +124,107 @@ class ThinkerTables:
         count = torch.where(self.kind[None] == K_STROBE, strobe, count)
         count = torch.where(self.kind[None] == K_FIRE, 4, count)
         return count.to(torch.int32)
+
+
+def draw_lights(generator: torch.Generator, batch: int,
+                sectors: int) -> torch.Tensor:
+    """[2, B, SEC] i32 draws in [0, 2^30) for one `step_lights`, on the
+    generator's device."""
+    return torch.randint(
+        0, 1 << 30, (2, batch, sectors), generator=generator,
+        device=generator.device, dtype=torch.int32,
+    )
+
+
+def step_lights(tk: ThinkerTables, light, count, going_up, draws):
+    """One 35 Hz tick for all sector light thinkers, batched [B, SEC];
+    `draws` [2, B, SEC] i32 in [0, 2^30) stand in for JAX's two randint
+    draws of split(key) (thinkers.py:145-147).  Returns (light, count,
+    going_up)."""
+    kind = tk.kind[None]
+    rnd, rnd2 = draws[0], draws[1]
+    mn, mx = tk.min_light[None], tk.max_light[None]
+
+    # countdown thinkers (flash/strobe/fire) tick their counter first
+    counting = (kind == K_FLASH) | (kind == K_STROBE) | (kind == K_FIRE)
+    count_new = torch.where(counting, count - 1, count)
+    fire_now = counting & (count_new <= 0)
+
+    # LightFlash (lights.rs:79-99)
+    at_max = light == mx
+    flash_light = torch.where(at_max, mn, mx)
+    flash_count = torch.where(
+        at_max, 1 + torch.remainder(rnd, tk.min_time[None]),
+        1 + torch.remainder(rnd, tk.max_time[None]))
+
+    # StrobeFlash (lights.rs:144-164)
+    strobe_light = torch.where(at_max, mn, mx)
+    strobe_count = torch.where(at_max, tk.dark_time[None],
+                               tk.bright_time[None])
+
+    # FireFlicker (lights.rs:242-258)
+    amount = torch.remainder(rnd2, 4) * 16
+    fire_light = torch.where(light - amount < mn, mn, mx - amount)
+    fire_count = torch.full_like(count, 4)
+
+    light1, count1 = light, count_new
+    for k, lv, cv in ((K_FLASH, flash_light, flash_count),
+                      (K_STROBE, strobe_light, strobe_count),
+                      (K_FIRE, fire_light, fire_count)):
+        m = fire_now & (kind == k)
+        light1 = torch.where(m, lv, light1)
+        count1 = torch.where(m, cv, count1)
+
+    # GlowingLight (lights.rs:169-211): every tick, ramp +/- 8
+    is_glow = kind == K_GLOW
+    up = going_up
+    glow_up = light + GLOW_SPEED
+    overshoot_up = glow_up >= mx
+    glow_up = torch.where(overshoot_up, glow_up - GLOW_SPEED, glow_up)
+    glow_dn = light - GLOW_SPEED
+    overshoot_dn = glow_dn <= mn
+    glow_dn = torch.where(overshoot_dn, glow_dn + GLOW_SPEED, glow_dn)
+    glow_light = torch.where(up, glow_up, glow_dn)
+    new_up = torch.where(
+        is_glow, torch.where(up, ~overshoot_up & up, overshoot_dn), going_up)
+    light1 = torch.where(is_glow, glow_light, light1)
+    return light1.to(torch.int32), count1.to(torch.int32), new_up
+
+
+def step_mobjs(level: DeviceLevel, state, tics):
+    """MapObjectThinker::mutate (map_objects.rs:84-97), batched [B, MO]."""
+    frozen = tics == -1
+    t1 = tics - 1
+    advance = ~frozen & (t1 <= 0)
+    nxt = level.state_next[state.long()]
+    state1 = torch.where(advance, nxt, state)
+    tics1 = torch.where(advance, level.state_tics[nxt.long()],
+                        torch.where(frozen, tics, t1))
+    return state1, tics1
+
+
+def _move_to(level: DeviceLevel, state, tics, target, cond):
+    state1 = torch.where(cond, target, state)
+    tics1 = torch.where(cond, level.state_tics[target.long()], tics)
+    return state1, tics1
+
+
+def kill_mobjs(level: DeviceLevel, state, tics, mask=True):
+    """kill (map_objects.rs:99-104): move to death state if it has one."""
+    target = level.mobj_death_state[None]
+    return _move_to(level, state, tics, target, (target != 0) & mask)
+
+
+def explode_mobjs(level: DeviceLevel, state, tics, mask=True):
+    """explode (map_objects.rs:106-115): xdeath, falling back to death."""
+    xd = level.mobj_xdeath_state[None]
+    d = level.mobj_death_state[None]
+    state1, tics1 = _move_to(level, state, tics, xd, (xd != 0) & mask)
+    return _move_to(level, state1, tics1, d, (xd == 0) & (d != 0) & mask)
+
+
+def respawn_mobjs(level: DeviceLevel, state, tics, mask=True):
+    """respawn (map_objects.rs:117-120)."""
+    target = level.mobj_spawn_state[None]
+    cond = torch.full(target.shape, True, device=target.device) & mask
+    return _move_to(level, state, tics, target, cond)

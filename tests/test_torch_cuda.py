@@ -403,3 +403,29 @@ def test_render_masked_on_card_equals_cpu(cuda):
     assert torch.equal(widx.cpu(), widx_c) and torch.equal(wrgb.cpu(), wrgb_c)
     counters = gpu.render_counters(_state(gpu, pos, ang))
     assert set(counters.values()) == {0}, counters
+
+
+@pytest.mark.parametrize("pipeline", ["paint-reuse", "scan"])
+def test_moving_rollout_on_card_equals_cpu(cuda, pipeline):
+    """16 cameras, 4 ticks of moving controls on e1m1-scale at 320x200:
+    a live-reuse rollout on the paint path (live_stale > 0, so the paint
+    kernel reads drop bits set by the reuse) and a rollout on the scan +
+    resolve path, the final state, the frames and live_stale equal to the
+    CPU port's (chip_smoke.moving_rollout)."""
+    from chip_smoke import moving_rollout
+
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True, paint_percam_compact=True,
+                       paint_live_capacity=256)
+    reuse = pipeline == "paint-reuse"
+    if not reuse:
+        cfg = dataclasses.replace(cfg, use_pallas_paint=False,
+                                  span_capacity=96)
+    diffs, stale, stale_cpu, launches = moving_rollout(cuda, cfg, reuse)
+    assert set(diffs.values()) == {0}, diffs
+    assert stale == stale_cpu
+    assert launches["paint" if reuse else "scan"] == 4
+    assert launches["items"] == 4
+    if reuse:
+        assert stale > 16 * 3

@@ -1,10 +1,11 @@
 """The port's own copies of the host layers (config, wad, level, assets,
-info) against the JAX package's modules they were copied from.
+info, render/map2d) against the JAX package's modules they were copied
+from.
 
 For the demo, e1m1-scale and doom1-asset-scale fixtures: the same WAD
-bytes from synth, the same MapTables and LevelAssets (every field), and
-the same info tables.  Tolerance: exact equality of every value, shape
-and dtype.
+bytes from synth, the same MapTables and LevelAssets (every field), the
+same info tables, and the same overhead maps.  Tolerance: exact equality
+of every value, shape and dtype.
 """
 
 import dataclasses
@@ -63,3 +64,27 @@ def test_info_tables_and_config_equal_jax():
     for name in ("ASPECT_RATIO_CORRECTION", "PLAYER_EYE_HEIGHT", "CLOCK_HZ",
                  "SKY_TEXTURE_WIDTH", "SKY_TEXTURE_HEIGHT", "FLAT_SIZE"):
         assert getattr(config, name) == getattr(jconfig, name), name
+
+
+@pytest.mark.parametrize(
+    "wad_fn", ["demo_wad", "e1m1_scale_wad", "doom1_scale_wad"])
+def test_map2d_equals_jax(wad_fn):
+    """render_map_2d of the port's copy against the JAX package's, at
+    two screens and three poses (one off the map)."""
+    from doomtpu.render.map2d import render_map_2d as jax_map
+    from doomtpu_torch.render.map2d import render_map_2d
+
+    wad = getattr(synth, wad_fn)()
+    t, jt = MapTables.load(WadFile(wad), "e1m1"), JaxTables.load(
+        JaxWad(wad), "e1m1")
+    left, right, top, bottom = [float(v) for v in t.bbox]
+    poses = [((left + right) / 2, (top + bottom) / 2, 0.7),
+             (left + 1.5, bottom - 2.25, 3.9), (right + 500.0, top, -1.0)]
+    for w, h in ((320, 200), (64, 48)):
+        cfg = config.RenderConfig(width=w, height=h)
+        jcfg = jconfig.RenderConfig(width=w, height=h)
+        for x, y, a in poses:
+            got = render_map_2d(t, cfg, x, y, a)
+            assert got.dtype == np.uint8 and got.shape == (h, w, 3)
+            np.testing.assert_array_equal(got, jax_map(jt, jcfg, x, y, a))
+            assert got.any()
