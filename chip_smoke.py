@@ -34,7 +34,19 @@ fails:
   tick, live_stale 0, equal checksums, every counter of the final state
   0; then 16 cameras of moving controls through a reuse rollout (stale
   segs, so the paint kernel reads drop bits the reuse set) and a scan +
-  resolve rollout (the wall-scan kernel), each against the CPU port.
+  resolve rollout (the wall-scan kernel), each against the CPU port;
+- e1m1-scale calibration (DoomEngine.calibrate over bench.py's 33-state
+  chain of zero controls, cache off): the census's wall scan launches
+  the wall-scan kernel; every counter 0 under the calibrated config on
+  chain states 0, 16 and 32 on both pipelines; the card's calibrated
+  config equal to the CPU port's on 16 cameras x 4 states; render timed
+  at the calibrated pools beside the hand pools, same frames;
+- the batch split (doomtpu_torch/parallel): 64 cameras in two shards on
+  [cuda:0, cuda:0], render, both counter calls and a 4-tick live-reuse
+  rollout equal to the unsplit engine's;
+- the shell: `python -m doomtpu_torch.cli --synth demo --walk --steps 35
+  --out <tmp>.npy` in a process of its own, its dump equal to the
+  engine's frame after the same ticks.
 
 It checks their output against the CPU port on 16 cameras, then times
 them.  The cells also run the cost probes (the paint, item-pass and
@@ -1478,6 +1490,228 @@ def rollout_cell(s: Smoke) -> None:
               f"set by the reuse")
 
 
+def calibration_cell(s: Smoke) -> None:
+    """e1m1-scale calibration as bench.py runs it (bench.py:136-180):
+    bench.py's config (per-camera live lists, render_chunk 256) and its
+    33-state chain of zero controls, made with the port's tick, censused
+    by engine.calibrate with the cache off.  On the card the census's
+    wall scan is K4.  Then every counter 0 on chain states 0, 16 and 32
+    under the calibrated config, on the paint and the scan path; the
+    card's calibrated config equal to the CPU port's on 16 cameras x 4
+    states; and render timed at the calibrated pools beside the hand
+    pools of the other cells, frames equal."""
+    import torch
+
+    from doomtpu_torch.calibrate import calibrated_config
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.wad import synth
+
+    phase("e1m1-scale: calibration")
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(width=320, height=200, use_pallas_paint=True,
+                       paint_percam_compact=True)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=s.dev)
+    controls = torch.zeros((B,), dtype=torch.int32, device=s.dev)
+    gen = torch.Generator(s.dev).manual_seed(1)
+    chain = [s.new_game(eng, B)]
+    for _ in range(32):
+        chain.append(eng.tick(chain[-1], controls, gen))
+    os.environ["DOOMTPU_CALIB_CACHE"] = "0"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s.zero_counts()
+    t0 = time.perf_counter()
+    cal = eng.calibrate(chain)
+    torch.cuda.synchronize()
+    census_s = time.perf_counter() - t0
+    got = s.counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    c = cal.config
+    log(f"calibrated config B={B}, {len(chain)} states: span_capacity "
+        f"{c.span_capacity} mid_capacity {c.mid_capacity} clip_capacity "
+        f"{c.clip_capacity} item_capacity {c.item_capacity} "
+        f"max_visible_mobjs {c.max_visible_mobjs} item_block_capacity "
+        f"{c.item_block_capacity} paint_live_capacity "
+        f"{c.paint_live_capacity} (render_chunk {c.render_chunk}, "
+        f"paint_percam_compact {c.paint_percam_compact})")
+    log(f"census (engine.calibrate) B={B} x {len(chain)} states: "
+        f"{census_s:.3f} s, launches {got}, peak {peak:.2f} GiB  [{s.card}]")
+    check(got["scan"] > 0, "the census launched no wall-scan kernel")
+    check(got["paint"] == got["items"] == got["itempass"] == 0,
+          f"the census launched a render kernel: {got}")
+
+    scan_cal = dataclasses.replace(
+        cal, config=dataclasses.replace(c, use_pallas_paint=False))
+    for label, e, want in (("paint", cal, "paint"),
+                           ("scan + resolve", scan_cal, "scan")):
+        for i in (0, 16, 32):
+            s.zero_counts()
+            counters = e.render_counters(chain[i])
+            log(f"render_counters under the calibrated config, {label} "
+                f"path, chain state {i}: {counters}; launches {s.counts()}")
+            check(s.counts()[want] == 1, f"{label}: pipeline not taken")
+            check(all(v == 0 for v in counters.values()),
+                  f"calibrated config, {label} path, state {i}: counters "
+                  f"not 0: {counters}")
+
+    # the card's census against the CPU port's on a slice of the chain
+    sel = torch.linspace(0, B - 1, 16).long().to(s.dev)
+    cpu_eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                        config=cfg, device="cpu")
+    sub = [st.map(lambda x: x[sel]) for st in chain[:4]]
+    t0 = time.perf_counter()
+    on_card = calibrated_config(eng, sub, cache=False)
+    on_cpu = calibrated_config(cpu_eng, [st.map(lambda x: x.cpu())
+                                         for st in sub], cache=False)
+    differ = {f: (getattr(on_card, f), getattr(on_cpu, f))
+              for f in (f.name for f in dataclasses.fields(on_card))
+              if getattr(on_card, f) != getattr(on_cpu, f)}
+    log(f"calibrated config of 16 cameras x 4 states, card vs CPU port "
+        f"({time.perf_counter() - t0:.1f} s): fields that differ {differ}")
+    check(not differ, "the card's census and the CPU port's disagree")
+
+    # render at the calibrated pools beside the hand pools, in turns
+    hand = dataclasses.replace(eng, config=dataclasses.replace(
+        cfg, mid_capacity=40, clip_capacity=64, item_capacity=24))
+    st = chain[0]
+    for a, b in zip(cal.render(st), hand.render(st)):
+        check(torch.equal(a, b), "calibrated and hand pools draw different "
+              "frames")
+    del chain, sub, scan_cal
+    torch.cuda.empty_cache()
+    times = {"calibrated": [], "hand": []}
+    for which in ("calibrated", "hand", "hand", "calibrated"):
+        e = cal if which == "calibrated" else hand
+        times[which].append(s.time_path(e.render, st, f"render e1m1-scale "
+                                        f"{which} pools"))
+    sums = {s.checksums[f"render e1m1-scale {w} pools"] for w in times}
+    check(len(sums) == 1, f"checksums differ: {sums}")
+    for which, ms in times.items():
+        log(f"render e1m1-scale {which} pools: mean {sum(ms) / 2:.3f} ms "
+            f"({' and '.join(f'{t:.3f}' for t in ms)})  [{s.card}]")
+    log(f"phase e1m1-scale calibration: {time.perf_counter() - t_phase:.1f} "
+        f"s  [{s.card}]")
+
+
+def split_cell(s: Smoke) -> None:
+    """The batch split over devices (doomtpu_torch/parallel): 64 cameras
+    in two shards on [cuda, cuda:0], driven by a SplitEngine over an
+    engine whose home is the CPU (so each shard runs against the copy of
+    the level on the card), against the unsplit card engine: render,
+    both counter calls (the per-shard sums), and a 4-tick live-reuse
+    rollout.  `cuda` and `cuda:0` name one card: one copy."""
+    import numpy as np
+    import torch
+
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.parallel import SplitEngine
+    from doomtpu_torch.wad import synth
+
+    phase("the split on the card")
+    t_phase = time.perf_counter()
+    n, T = 64, 4
+    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                       clip_capacity=64, item_capacity=24,
+                       use_pallas_paint=True, paint_percam_compact=True)
+    wad = synth.e1m1_scale_wad()
+    card = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=s.dev)
+    home = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu")
+    state = s.new_game(card, n)
+    split_engine = SplitEngine(home, ["cuda", "cuda:0"])
+    split = split_engine.shard(state)
+    check([sh.device for sh in split.shards] == [state.device] * 2
+          and list(split_engine.engines) == [state.device],
+          f"shards not on the card: {split_engine.mesh}")
+    check(SplitEngine(card, ["cuda"]).engines[state.device] is card,
+          "the card engine's own device got a copy")
+    s.zero_counts()
+    got = split_engine.render(split)
+    torch.cuda.synchronize()
+    launches = s.counts()
+    want = card.render(state)
+    diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+    log(f"split render B={n} in 2 shards: launches {launches}; differing "
+        f"elements against the unsplit render {diff}")
+    check(got[0].is_cuda and launches["paint"] == 2
+          and launches["items"] == 2, f"split render: launches {launches}")
+    check(diff == 0, "split and unsplit renders differ")
+    for call in ("render_counters", "render_walls_counters"):
+        c_split = getattr(split_engine, call)(split)
+        per = [getattr(card, call)(sh) for sh in split.shards]
+        c_sum = {k: sum(p[k] for p in per) for k in c_split}
+        log(f"split {call}: {c_split}; per-shard sums {c_sum}")
+        check(c_split == c_sum == getattr(card, call)(state),
+              f"split {call} differs")
+    controls = torch.as_tensor(np.resize(np.asarray(MOVES, np.int32),
+                                         (T, n)))
+    draws = torch.randint(0, 1 << 30, (T, 2, n, card.level.num_sectors),
+                          generator=torch.Generator().manual_seed(2),
+                          dtype=torch.int32)
+    s.zero_counts()
+    fs, frames_s, stale_s = split_engine.rollout(split, controls,
+                                                 draws=draws,
+                                                 live_reuse=True)
+    torch.cuda.synchronize()
+    launches = s.counts()
+    fu, frames_u, stale_u = card.rollout(state, controls, draws=draws,
+                                         live_reuse=True)
+    diff = int((frames_s != frames_u).sum()) + sum(
+        int((getattr(fs.gather(), f.name) != getattr(fu, f.name)).sum())
+        for f in dataclasses.fields(fu))
+    log(f"split rollout B={n} T={T} live_reuse: launches {launches}; "
+        f"live_stale {int(stale_s)} (unsplit {int(stale_u)}); differing "
+        f"elements against the unsplit rollout {diff}")
+    check(launches["paint"] == 2 * T and launches["items"] == 2 * T,
+          f"split rollout: launches {launches}")
+    check(diff == 0 and int(stale_s) == int(stale_u),
+          "split and unsplit rollouts differ")
+    log(f"phase split: {time.perf_counter() - t_phase:.1f} s  [{s.card}]")
+
+
+def cli_cell(s: Smoke) -> None:
+    """The shell on the card: `python -m doomtpu_torch.cli --synth demo
+    --walk --steps 35 --out <tmp>.npy` in a process of its own; its dump
+    equals the engine's frame after the same ticks (render, then tick,
+    each step: the last frame follows 34 ticks)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.sim.player import KEY_LEFT, KEY_UP
+    from doomtpu_torch.wad import synth
+
+    phase("the shell on the card")
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "frame.npy")
+        p = subprocess.run(
+            [sys.executable, "-m", "doomtpu_torch.cli", "--synth", "demo",
+             "--walk", "--steps", "35", "--out", out],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        log(f"cli: exit {p.returncode} ({time.perf_counter() - t0:.1f} s); "
+            f"stdout {p.stdout.strip()[-200:]!r}")
+        check(p.returncode == 0, f"cli failed:\n{p.stderr[-4000:]}")
+        dump = np.load(out)
+    eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", device=s.dev)
+    gen = torch.Generator(s.dev).manual_seed(0)
+    state = eng.new_game(1, generator=gen)
+    walk = torch.full((1,), KEY_UP | KEY_LEFT, dtype=torch.int32)
+    for _ in range(34):
+        state = eng.tick(state, walk, gen)
+    ref = eng.render(state)[1].cpu().numpy()
+    diff = int((dump != ref).sum()) if dump.shape == ref.shape else -1
+    log(f"cli dump {dump.shape} {dump.dtype} against the engine's frame "
+        f"after 34 ticks: differing elements {diff}")
+    check(diff == 0 and (ref != 0).any(), "cli dump differs from the engine")
+    log(f"phase shell: {time.perf_counter() - t0:.1f} s  [{s.card}]")
+
+
 def resource_report(s: Smoke, libs) -> dict:
     """The resources of every kernel library built (the TPU probe
     scripts/probe_mosaic_layout.py asked which layouts Mosaic takes; on
@@ -1772,6 +2006,11 @@ def main() -> int:
     r_ip = itempass_cell(s)
     torch.cuda.empty_cache()
     rollout_cell(s)
+    torch.cuda.empty_cache()
+    calibration_cell(s)
+    torch.cuda.empty_cache()
+    split_cell(s)
+    cli_cell(s)
     phase("done")
 
     check(not any(m == "jax" or m.startswith(("jax.", "jaxlib"))

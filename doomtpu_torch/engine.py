@@ -19,19 +19,23 @@ takes the same pipeline in both).  With `use_item_pass_kernel=True` as
 well, an eligible level's sprites and masked mids come from the
 item-pass kernel, which draws every selected item (no item pool, no
 item_capacity cap).  `tick` and `rollout` step the simulation; a
-rollout renders every tick through the same pipeline.  Calibration
-comes with a later slice and raises NotImplementedError until then.
+rollout renders every tick through the same pipeline.  `calibrate`
+returns an engine whose pool capacities come from a census of the
+states it is given (calibrate.py; on the card its wall scan runs the
+wall-scan kernel).  `parallel.SplitEngine` runs these calls over a
+batch split across devices.
+The command-line shell (cli.py, viewer.py) drives this API.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
 
 from doomtpu_torch.assets.bundle import LevelAssets
-from doomtpu_torch.config import RenderConfig
+from doomtpu_torch.config import CLOCK_HZ, RenderConfig
 from doomtpu_torch.info import load_default_tables
 from doomtpu_torch.info.tables import InfoTables
 from doomtpu_torch.level.tables import MapTables
@@ -42,6 +46,34 @@ from doomtpu_torch.render.frame import render_frame, render_walls_planes
 from doomtpu_torch.sim import step as step_mod
 from doomtpu_torch.sim.state import GameState, state_from_numpy
 from doomtpu_torch.sim.thinkers import ThinkerTables, draw_lights
+
+
+class Clock:
+    """35 Hz tick derivation + 16-sample rolling FPS average
+    (game.rs:47-92), copied from the JAX package's engine: `ticks` is
+    the total CLOCK_HZ ticks elapsed since start, so the shell's evolve
+    loop can run exactly the missed ticks (game.rs:469-483) instead of
+    one tick per rendered frame."""
+
+    def __init__(self, samples: int = 16):
+        self.samples = samples
+        self.list = [0.0] * samples
+        self.index = 0
+        self.rolling_sum = 0.0
+        self.timestamp = 0.0
+        self.ticks = 0
+
+    def add_elapsed_interval(self, interval: float) -> None:
+        self.timestamp += interval
+        self.ticks = int(self.timestamp * CLOCK_HZ)   # game.rs:73
+        self.rolling_sum -= self.list[self.index]
+        self.rolling_sum += interval
+        self.list[self.index] = interval
+        self.index = (self.index + 1) % self.samples
+
+    def fps(self) -> float:
+        avg = self.rolling_sum / self.samples
+        return 1.0 / avg if avg > 0 else 0.0
 
 
 @dataclass(eq=False)
@@ -150,6 +182,18 @@ class DoomEngine:
             generator = torch.Generator(self.device).manual_seed(0)
         return generator
 
+    def light_draws(self, batch: int, generator=None, ticks=None):
+        """The light step's draws for `batch` cameras from `generator`
+        (a new one seeded 0 when None): one tick's [2, B, SEC] i32, or
+        with `ticks` T, [T, 2, B, SEC] drawn tick after tick as rollout
+        draws them."""
+        g = self._generator(generator)
+        sec = self.level.num_sectors
+        if ticks is None:
+            return draw_lights(g, batch, sec).to(self.device)
+        return torch.stack([draw_lights(g, batch, sec)
+                            for _ in range(ticks)]).to(self.device)
+
     def tick(self, state: GameState, controls, generator=None,
              draws=None) -> GameState:
         """One 35 Hz tick of `controls` [B] (sim/player.py's bitmask).
@@ -158,8 +202,7 @@ class DoomEngine:
         from `generator` (on the engine's device; a new one seeded 0
         when None, so repeated calls draw the same)."""
         if draws is None:
-            draws = draw_lights(self._generator(generator), state.batch,
-                                self.level.num_sectors)
+            draws = self.light_draws(state.batch, generator)
         return step_mod.tick(self.level, self.thinkers, state,
                              self._controls(controls), draws.to(self.device),
                              self.turbo)
@@ -187,8 +230,7 @@ class DoomEngine:
         T = controls_seq.shape[0]
         if draws is None:
             g = self._generator(generator)
-            sec = self.level.num_sectors
-            draw = lambda t: draw_lights(g, state.batch, sec).to(self.device)
+            draw = lambda t: self.light_draws(state.batch, g)
         else:
             draws = torch.as_tensor(draws).to(self.device)
             draw = lambda t: draws[t]
@@ -219,8 +261,14 @@ class DoomEngine:
     def respawn_everything(self, state: GameState) -> GameState:
         return step_mod.respawn_everything(self.level, state)
 
-    def calibrate(self, states):
-        raise NotImplementedError("calibration is not ported yet")
+    def calibrate(self, states) -> "DoomEngine":
+        """A copy of this engine whose pool capacities are measured from
+        an uncapped census of `states` (a GameState or a list, on this
+        engine's device), see calibrate.py.  Renders of exactly those
+        states are then drop-free (every counter 0)."""
+        from doomtpu_torch.calibrate import calibrated_config
+
+        return replace(self, config=calibrated_config(self, states))
 
     # ---- state API ----------------------------------------------------------
     def player_position_json(self, state: GameState, env: int = 0) -> str:

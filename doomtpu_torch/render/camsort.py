@@ -1,9 +1,11 @@
 """Camera sort: Morton-sort cameras before rendering, unsort after.
 
-Counterpart of doomtpu/render/camsort.py with one shard.  The
-permutation only changes which cameras sit next to each other, never a
-pixel value.  Key layout: coarse region, angle bucket, fine position
-(angle above fine position, the JAX package's measured default).
+Counterpart of doomtpu/render/camsort.py.  The permutation only
+changes which cameras sit next to each other, never a pixel value.  A
+batch split over devices (parallel/mesh.py) sorts each shard's cameras
+on their own, which is the JAX package's shard-local sort.  Key
+layout: coarse region, angle bucket, fine position (angle above fine
+position, the JAX package's measured default).
 """
 
 from __future__ import annotations

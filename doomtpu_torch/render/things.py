@@ -4,7 +4,8 @@ Counterpart of doomtpu/render/things.py (`pools_from_paint` or
 `pools_from_unified` -> `deferred_pass` with the item kernel) at its
 shipping defaults: dense emission (no block-local path), mid presence
 per selected item and the vectorized mid fill.  `item_pack` builds the
-item-pass kernel's inputs from the same selection (stages 1-2).  The
+item-pass kernel's inputs from the same selection (stages 1-2), and
+`item_census` counts what the pool would hold uncapped (calibration).  The
 stages and their arithmetic are the JAX package's:
 
 1. per-item scalars [B, I], I = mobjs + drawable mids: billboard
@@ -49,6 +50,7 @@ from doomtpu_torch.ops.itempass import (
     IPI_LW, IPI_PIC, IPI_ROWS, IPI_SOFF, IPI_TH, IPI_X0, IPI_X1E,
 )
 from doomtpu_torch.ops.layout import KIND_MID, pack16
+from doomtpu_torch.ops.paint import LIVE_BLOCK
 # re-exported: the JAX package's things.py holds pools_from_paint
 from doomtpu_torch.ops.paint import pools_from_paint  # noqa: F401
 from doomtpu_torch.render import camera as cam
@@ -332,6 +334,83 @@ def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
             "f": torch.stack([spr_f[r] for r in range(IPF_ROWS)],
                              -1).contiguous()}
     return pack, dict(zero_aux, items_dropped=s["items_dropped"])
+
+
+def item_census(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
+                px, py, angle, floor_height, sector_light, mobj_state,
+                tile: int = 1) -> dict:
+    """Uncapped per-column item presence and valid-item totals: the
+    census behind calibration (doomtpu_torch/calibrate.py), JAX
+    things.item_census.
+
+    `pools` is the (clip, mid) pair; only the mid pool's span, d6 and cnt
+    ([B, K, W] slot-major, as pools_from_unified gives them) are read.
+    Returns {"n_valid": [B] i32, "presence": [B, W] i32,
+    "presence_block": [] i32}: presence[b, w] is the item-pool occupancy
+    the deferred pass would see with max_visible_mobjs and item_capacity
+    both uncapped, and presence_block the peak count of distinct live
+    items per (camera `tile`, 128-column block), the requirement of the
+    JAX package's block emission (item_block_capacity).
+
+    Sprite coverage [bsx, bex) goes through a difference array and a
+    cumsum; mid coverage counts the mid-pool slots whose seg is a valid
+    drawable mid."""
+    B, W, dev = px.shape[0], cfg.width, px.device
+    MO, G = level.num_mobjs, level.num_segs
+    dsegs = level.dseg_ix.long()
+    nbw = -(-W // LIVE_BLOCK)
+    wlo = torch.arange(nbw, dtype=I32, device=dev) * LIVE_BLOCK
+    T = tile if tile > 1 and B % tile == 0 else 1
+
+    def tile_any(x):                    # [B, I, NBW] -> [B/T, I, NBW]
+        return x.view(B // T, T, x.shape[1], nbw).any(1)
+
+    blk_cnt = torch.zeros((B // T, nbw), dtype=I32, device=dev)
+    n_valid = torch.zeros((B,), dtype=I32, device=dev)
+    presence = torch.zeros((B, W), dtype=I32, device=dev)
+    if MO > 0:
+        sps = _sprite_scalars(level, cfg, px, py, angle, floor_height,
+                              sector_light, mobj_state)
+        valid = sps["valid"]
+        x0, x1 = as_i16(sps["bsx"]), as_i16(sps["bex"])      # x1 exclusive
+        lo, hi = torch.clamp(x0, 0, W), torch.clamp(x1, 0, W)
+        use = valid & (hi > lo)
+        # unused intervals land on the dumped column W, outside the cumsum
+        diff = torch.zeros((B, W + 1), dtype=I32, device=dev)
+        one = torch.ones_like(lo)
+        diff.scatter_add_(1, torch.where(use, lo, W).long(), one)
+        diff.scatter_add_(1, torch.where(use, hi, W).long(), -one)
+        presence += torch.cumsum(diff[:, :W], 1, dtype=I32)
+        n_valid += valid.sum(1, dtype=I32)
+        live = ((x0[..., None] < wlo + LIVE_BLOCK) & (x1[..., None] > wlo)
+                & valid[..., None])                           # [B, MO, NBW]
+        blk_cnt += tile_any(live).sum(1, dtype=I32)
+    if dsegs.shape[0] > 0:
+        midp = pools[1]
+        span, d6 = midp["span"], midp["d6"]                   # [B, K, W]
+        K = span.shape[1]
+        ok = torch.arange(K, device=dev)[None, :, None] < midp["cnt"][:, None]
+        mid_slot = (((span >> 29) & 3) == KIND_MID) & ok
+        dseg_valid = frame["valid"][:, dsegs] & frame["active"][:, dsegs, 1]
+        valid_of_seg = torch.zeros((B, G + 1), dtype=torch.bool, device=dev)
+        valid_of_seg[:, dsegs] = dseg_valid
+        # slots past a column's count hold no record: they read seg G
+        seg = torch.where(mid_slot, d6, G).long()
+        drawn = torch.gather(valid_of_seg, 1, seg.view(B, -1)).view(B, K, W)
+        presence += drawn.sum(1, dtype=I32)
+        n_valid += dseg_valid.sum(1, dtype=I32)
+        # distinct live mids per block: the drawn slots set (block, seg)
+        # flags, read back per drawable mid
+        blk = torch.arange(W, device=dev) // LIVE_BLOCK
+        flat = blk * (G + 1) + torch.where(drawn, seg, G)
+        segblk = torch.zeros((B, nbw * (G + 1)), dtype=torch.bool,
+                             device=dev)
+        segblk.scatter_(1, flat.view(B, -1), True)
+        live_mid = (segblk.view(B, nbw, G + 1)[:, :, dsegs].transpose(1, 2)
+                    & dseg_valid[..., None])                  # [B, D, NBW]
+        blk_cnt += tile_any(live_mid).sum(1, dtype=I32)
+    return {"n_valid": n_valid, "presence": presence,
+            "presence_block": blk_cnt.max()}
 
 
 def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,

@@ -429,3 +429,29 @@ def test_moving_rollout_on_card_equals_cpu(cuda, pipeline):
     assert launches["items"] == 4
     if reuse:
         assert stale > 16 * 3
+
+
+def test_calibrate_on_card_equals_cpu(engines):
+    """The census on a CUDA engine (its wall scan launches the wall-scan
+    kernel) returns the CPU port's config on demo, B=8, a 3-tick chain of
+    walking cameras (draws from the CPU, so both chains are the same)."""
+    from doomtpu_torch.calibrate import calibrated_config
+    from doomtpu_torch.sim.player import KEY_LEFT, KEY_UP
+    from doomtpu_torch.sim.thinkers import draw_lights
+
+    card, cpu = engines
+    pos = np.asarray([v[:2] for v in VIEWS * 2], np.float32)
+    ang = np.asarray([v[2] for v in VIEWS * 2], np.float32)
+    st_cpu = _state(cpu, pos, ang)
+    st_card = st_cpu.map(lambda x: x.to(card.device))
+    gen = torch.Generator().manual_seed(1)
+    ctl = torch.full((8,), KEY_UP | KEY_LEFT, dtype=torch.int32)
+    chain_cpu, chain_card = [st_cpu], [st_card]
+    for _ in range(2):
+        draws = draw_lights(gen, 8, cpu.level.num_sectors)
+        chain_cpu.append(cpu.tick(chain_cpu[-1], ctl, draws=draws))
+        chain_card.append(card.tick(chain_card[-1], ctl, draws=draws))
+    ts.scan.launches = 0
+    got = calibrated_config(card, chain_card, cache=False)
+    assert ts.scan.launches >= 3          # one per state's geometry census
+    assert got == calibrated_config(cpu, chain_cpu, cache=False)

@@ -243,8 +243,16 @@ def test_render_equals_golden(name, info):
 
 
 def test_unported_entry_points_raise(engines, states):
-    """Calibration is the one entry point still to port."""
+    """No entry point raises any more: calibrate, the last one ported,
+    returns a new engine whose config differs from the old one only in
+    the capacities it measures (tests/test_torch_calibrate.py holds their
+    values to JAX's)."""
+    from doomtpu_torch.calibrate import _OUT_FIELDS
+
     _, te = engines
     _, ts = states
-    with pytest.raises(NotImplementedError):
-        te.calibrate([ts])
+    cal = te.calibrate([ts])
+    assert cal is not te and cal.level is te.level
+    old, new = dataclasses.asdict(te.config), dataclasses.asdict(cal.config)
+    changed = {k for k in old if old[k] != new[k]}
+    assert changed and changed <= set(_OUT_FIELDS), changed

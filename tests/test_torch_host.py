@@ -88,3 +88,19 @@ def test_map2d_equals_jax(wad_fn):
             assert got.dtype == np.uint8 and got.shape == (h, w, 3)
             np.testing.assert_array_equal(got, jax_map(jt, jcfg, x, y, a))
             assert got.any()
+
+
+def test_color_helpers_equal_jax():
+    """utils/color.py, copied: unpack_rgb and pack_rgb of the port and of
+    the JAX package on the same packed and unpacked arrays."""
+    from doomtpu.utils import color as jcolor
+    from doomtpu_torch.utils import color
+
+    rng = np.random.default_rng(0)
+    packed = rng.integers(0, 1 << 24, (3, 5, 7), dtype=np.int32)
+    rgb = color.unpack_rgb(packed)
+    assert rgb.dtype == np.uint8 and rgb.shape == (3, 5, 7, 3)
+    np.testing.assert_array_equal(rgb, jcolor.unpack_rgb(packed))
+    back = color.pack_rgb(rgb)
+    np.testing.assert_array_equal(back, jcolor.pack_rgb(rgb))
+    np.testing.assert_array_equal(back, packed)
