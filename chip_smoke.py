@@ -10,8 +10,15 @@ blocks an SM; a spill fails the run).  Then it holds each kernel
 against its plain PyTorch version on the card (the paint kernel also
 under a live-seg cap that drops segs; every kernel at 320x200, 320x768
 and 1024x200; the item kernel also on a WAD whose masked mid is 256
-rows tall, rendered against the CPU port), and drives the port's main
-paths with 4096 spread cameras at 320x200, the paint path asked for
+rows tall, rendered against the CPU port), then the Hopper probes P1-P4
+(ops/probe_visit.py, ops/probe_ybounds.py: each probe kernel against
+its plain version, then the probes' own path with its counts set to 0
+just before and read just after: every P1 construct timed at both
+launch shapes beside its SASS bound, P2's and P3's one-hot exactness
+beside torch.matmul's, P4's row-bound modes; and the native picture
+decoder, built with the host C++ compiler, on four WADs' pictures), and
+drives the port's main paths with 4096 spread cameras at 320x200, the
+paint path asked for
 (`use_pallas_paint=True`), each with the launch counts set to 0 just
 before it and read just after, so a path that took another pipeline
 fails:
@@ -77,10 +84,14 @@ import subprocess
 import sys
 import time
 
-# the card's published peaks (H100 SXM data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores and dense TF32 tensor-core
+# operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+# the Hopper probes' libraries (ops/probe_visit.py, ops/probe_ybounds.py)
+PROBE_LIBS = ("probe_visit", "probe_ybounds")
 B = 4096
 T0 = time.perf_counter()
 # band heights the probe times the paint and item kernels at (at 200
@@ -1712,6 +1723,228 @@ def cli_cell(s: Smoke) -> None:
     log(f"phase shell: {time.perf_counter() - t0:.1f} s  [{s.card}]")
 
 
+def picture_lumps(wad):
+    """Every picture lump of a WAD: its patches (PNAMES) and sprites."""
+    from doomtpu_torch.assets.textures import TextureStore
+
+    store = TextureStore(wad)
+    return [(n, wad.lump(n)) for n in store.pnames if wad.has(n)] + [
+        (e.name, wad.lump_at(e)) for e in wad.sprite_entries()
+        if wad.lump_at(e).size > 8]
+
+
+def check_native_decoder(card: str) -> None:
+    """ops/native.py: the port's decoder built with the host C++ compiler,
+    every picture of four WADs decoded as the NumPy decode does."""
+    from unittest import mock
+
+    from doomtpu_torch.assets import pictures
+    from doomtpu_torch.ops import build, native
+    from doomtpu_torch.wad import synth
+    from doomtpu_torch.wad.reader import WadFile
+
+    t0 = time.perf_counter()
+    native.build()
+    check(native.available(), "the native decoder did not load")
+    lumps = [(wad_fn, name, raw) for wad_fn in (
+        "demo_wad", "e1m1_scale_wad", "doom1_scale_wad", "decoder_wad")
+        for name, raw in picture_lumps(WadFile(getattr(synth, wad_fn)()))]
+    numpy_only = mock.patch.object(native, "decode_picture", lambda *a: None)
+    for wad_fn, name, raw in lumps:
+        with numpy_only:
+            want = pictures.decode_picture(raw, name)
+        got = native.decode_picture(raw, want.width, want.height)
+        check(got is not None and (got[0] == want.pixels).all()
+              and (got[1] == want.mask).all(),
+              f"native decode of {wad_fn} {name} differs")
+    check(len(lumps) > 50, f"only {len(lumps)} pictures")
+    build_s = time.perf_counter() - t0
+
+    def decode_all_ms():
+        t = time.perf_counter()
+        for _, name, raw in lumps:
+            pictures.decode_picture(raw, name)
+        return (time.perf_counter() - t) * 1e3
+
+    # assets/pictures.py both ways, in turns, best of 5 each
+    ms = {"native": [], "numpy": []}
+    for _ in range(5):
+        ms["native"].append(decode_all_ms())
+        with numpy_only:
+            ms["numpy"].append(decode_all_ms())
+    log(f"native decoder ({build.host_library_path('doomdec').name}, "
+        f"{build.cxx_path()}): {len(lumps)} pictures of 4 WADs "
+        f"({sum(r.size for *_, r in lumps)} bytes) equal to the NumPy "
+        f"decode, {build_s:.2f} s with the build; decode_picture over all "
+        f"of them, host clock, best of 5 in turns: native "
+        f"{min(ms['native']):.3f} ms, NumPy {min(ms['numpy']):.3f} ms  "
+        f"[{card}]")
+
+
+def probes_cell(s: Smoke) -> dict:
+    """The Hopper probes P1-P4 (ops/probe_visit.py, ops/probe_ybounds.py).
+    First each probe kernel against its plain version on the card: every
+    P1 construct at N = 64 on both launch shapes, P2 on every input, P2
+    and P3 on the control input (exact in TF32), P4 every mode at S = 64
+    and 4096; 0 differing elements.  Then the probes' own path, with
+    their counts set to 0 just before and read after: every construct
+    at N = 40000 on both shapes beside its bound (the operations it
+    needs, ops/probe_visit.py::NEEDS) and its SASS count, P2's and P3's bad
+    counts, P4's modes at S = 4096; then torch.matmul's bad counts and
+    time on P2 / P3's operands (TF32 allowed and not), and the native
+    picture decoder.  Returns the four kernel rows' numbers."""
+    import torch
+
+    from doomtpu_torch.ops import build
+    from doomtpu_torch.ops import probe_visit as pv
+    from doomtpu_torch.ops import probe_ybounds as pyb
+
+    phase("Hopper probes P1-P4")
+    dev, card = s.dev, s.card
+    # a probe that spills prices its local-memory traffic too: reported,
+    # not a failure (no probe is on a path of the engine)
+    spills = {}
+    for name in PROBE_LIBS:
+        for fn, r in build.ptxas_resources(build.nvcc_output(name)).items():
+            if "registers" in r:
+                log(f"resources {name} {fn}: {json.dumps(r)}")
+            if r.get("spill_stores") or r.get("spill_loads"):
+                spills[fn] = r
+    log(f"probe kernels that spill registers: {json.dumps(spills)}")
+    diff = lambda g, r: (int((g != r).sum()),
+                         int((g.long() - r.long()).abs().max()))
+    fdiff = lambda g, r: float((g.view(torch.float32).double()
+                                - r.view(torch.float32).double())
+                               .abs().max())
+    rows = {k: {"max_abs_err": 0, "plain_ms": 0.0}
+            for k in ("probe_visit", "probe_exact1", "probe_exact3",
+                      "probe_ybounds")}
+    inputs = pv.device_inputs(dev)
+    shapes = pv.configs(dev).values()
+    for name in pv.CONSTRUCTS:
+        x, t, arg = inputs[name]
+        copies = max(pv.copies_of(name, b, th) for b, th in shapes)
+        got, ref, ms = against_plain(
+            lambda: [pv.construct(name, x, t, pv.CHECK_N, arg, b, th)
+                     for b, th in shapes],
+            lambda: pv.construct_reference(name, x, t, pv.CHECK_N, arg,
+                                           copies))
+        for g in got:
+            n_bad, worst = diff(g, ref[:g.shape[0]])
+            check(n_bad == 0, f"probe {name}: {n_bad} elements differ from "
+                  f"the plain version (N={pv.CHECK_N}, {g.shape[0]} copies)")
+            rows["probe_visit"]["max_abs_err"] = max(
+                rows["probe_visit"]["max_abs_err"], worst)
+        rows["probe_visit"]["plain_ms"] += ms
+    log(f"P1: {len(pv.CONSTRUCTS)} constructs x {len(shapes)} launch shapes "
+        f"equal to their plain versions at N={pv.CHECK_N} (plain versions "
+        f"{rows['probe_visit']['plain_ms']:.1f} ms in all)  [{card}]")
+    sel = torch.from_numpy(pv.exact_selectors()).to(dev)
+    ws = {k: torch.from_numpy(v).to(dev) for k, v in pv.exact_inputs().items()}
+    for name, w in ws.items():
+        g1, r1, ms1 = against_plain(lambda: pv.exact1(w, sel),
+                                    lambda: pv.exact1_reference(w, sel))
+        check(diff(g1, r1)[0] == 0, f"P2 {name}: differs from its plain "
+              f"version in {diff(g1, r1)[0]} elements")
+        g3, r3, ms3 = against_plain(lambda: pv.exact3(w, sel),
+                                    lambda: pv.exact3_reference(w, sel))
+        if name == "control":
+            exact = pv.broadcast(w)
+            check(diff(g1, exact)[0] == 0 and diff(g3, exact)[0] == 0,
+                  "P2 / P3 differ from the exact broadcast on the control "
+                  "input (exact in TF32)")
+        rows["probe_exact1"]["max_abs_err"] = max(
+            rows["probe_exact1"]["max_abs_err"], fdiff(g1, r1))
+        rows["probe_exact3"]["max_abs_err"] = max(
+            rows["probe_exact3"]["max_abs_err"], fdiff(g3, r3))
+        if name == "f32":    # the input the kernels are timed on
+            rows["probe_exact1"]["plain_ms"] = ms1
+            rows["probe_exact3"]["plain_ms"] = ms3
+    for n_emit in (pyb.CHECK_S, pyb.S):
+        lo, hi = (torch.from_numpy(v).to(dev)
+                  for v in pyb.ybounds_inputs(n_emit))
+        for mode in pyb.MODES:
+            got, ref, ms = against_plain(
+                lambda: pyb.ybounds(lo, hi, mode),
+                lambda: pyb.ybounds_reference(lo, hi, mode))
+            n_bad, worst = diff(got, ref)
+            check(n_bad == 0, f"P4 {mode} S={n_emit}: {n_bad} elements "
+                  f"differ from the plain version")
+            if n_emit == pyb.S:
+                rows["probe_ybounds"]["plain_ms"] += ms
+    log(f"P2 on 3 inputs, P3 and P2 on the control input, P4's "
+        f"{len(pyb.MODES)} modes at S={pyb.CHECK_S} and {pyb.S}: equal to "
+        f"their plain versions  [{card}]")
+
+    # ---- the probes' own path ---------------------------------------
+    counted = {"probe_visit": pv.construct, "probe_exact1": pv.exact1,
+               "probe_exact3": pv.exact3, "probe_ybounds": pyb.ybounds}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    p1 = pv.measure(dev, reps=2, card=card, log=log)
+    pv.exactness(dev, card=card, log=log)
+    w = ws["f32"]
+    ms_exact = {k: event_ms(lambda: fn(w, sel), 20)
+                for k, fn in (("probe_exact1", pv.exact1),
+                              ("probe_exact3", pv.exact3))}
+    p4 = pyb.measure(dev, card=card, log=log)
+    for k, fn in counted.items():
+        rows[k]["launches"] = fn.launches
+        check(fn.launches > 0, f"{k}: the probes' path launched no kernel")
+    log(f"the probes' path: {time.perf_counter() - t0:.1f} s, launches "
+        f"{json.dumps({k: r['launches'] for k, r in rows.items()})}")
+    for name in pv.CONSTRUCTS:
+        check(p1[name]["bound_ns"] > 0, f"P1 {name}: no bound")
+    # a time under its bound would mean a rate or a count of NEEDS is wrong
+    under = {n: r["ns_per_iter"] for n, r in p1.items()
+             if min(r["ns_per_iter"].values()) < r["bound_ns"]}
+    log(f"P1 constructs timed under their bound: {json.dumps(under)}")
+    # ms at N = 40000, plain_ms at N = CHECK_N (the plain versions step
+    # one iteration at a time): the row says so
+    rows["probe_visit"].update(
+        ms=sum(sum(r["ms"].values()) for r in p1.values()),
+        bound_ms=sum(r["bound_ns"] * pv.N * len(r["ms"]) / 1e6
+                     for r in p1.values()), bound_by="operations",
+        iterations={"ms": pv.N, "bound_ms": pv.N, "plain_ms": pv.CHECK_N})
+    # P2 / P3: the one-hot products' bytes and TF32 operations
+    bytes_moved = (w.numel() + sel.numel() + 64 * 128) * 4
+    for k, passes in (("probe_exact1", 1), ("probe_exact3", 3)):
+        t_bytes = bytes_moved / HBM_BYTES_PER_S
+        t_ops = passes * 8 * 2 * 8 * 128 * 128 / TF32_OPS_PER_S
+        rows[k].update(ms=ms_exact[k], bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+    # torch.matmul of the same operands, one (8, 128) x (128, 1024) call
+    operand = sel.reshape(8, 128, 128).permute(1, 0, 2).reshape(128, 1024)
+    for k, tf32 in (("probe_exact1", True), ("probe_exact3", False)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        bad = {}
+        for name, wi in ws.items():
+            out = torch.matmul(wi, operand).reshape(8, 8, 128).permute(
+                1, 0, 2).reshape(64, 128).contiguous().view(torch.int32)
+            bad[name] = int((out != pv.broadcast(wi)).sum())
+        rows[k]["library_ms"] = event_ms(lambda: torch.matmul(w, operand),
+                                         20)
+        log(f"torch.matmul (allow_tf32={tf32}) of P2 / P3's operands: bad "
+            f"{json.dumps(bad)}, {rows[k]['library_ms']:.4f} ms  [{card}]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # P4: each mode reads the bounds once and writes the counts once; its
+    # operations are its +1s (empty: one add a lo word)
+    lo, hi = (torch.from_numpy(v).to(dev) for v in pyb.ybounds_inputs())
+    bounds = [bound(2 * lo.numel() * 4 + 8 * 200 * 128 * 4,
+                    lo.numel() if mode == "empty" else
+                    int(pyb.ybounds_reference(lo, hi, mode).long().sum()))
+              for mode in pyb.MODES]
+    rows["probe_ybounds"].update(
+        ms=sum(r["ms"] for r in p4.values()),
+        bound_ms=sum(b for b, _ in bounds),
+        bound_by=max(bounds)[1])
+    for k, r in rows.items():
+        log(f"{k}: {json.dumps(r)}  [{card}]")
+    check_native_decoder(card)
+    return rows
+
+
 def resource_report(s: Smoke, libs) -> dict:
     """The resources of every kernel library built (the TPU probe
     scripts/probe_mosaic_layout.py asked which layouts Mosaic takes; on
@@ -1883,8 +2116,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     libs = ("paint", "items", "scan", "itempass", *build.VARIANTS)
     t0 = time.perf_counter()
-    build.build_libraries(*libs)
-    for name in libs:
+    build.build_libraries(*libs, *PROBE_LIBS)
+    for name in (*libs, *PROBE_LIBS):
         build.load_library(name)
         log(f"build: {name}.cu (nvcc ended "
             f"{build.build_seconds.get(name, 0.0):.2f} s after the builds "
@@ -1892,7 +2125,7 @@ def main() -> int:
         for line in build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
-    log(f"build, {len(libs)} kernels in parallel: "
+    log(f"build, {len(libs) + len(PROBE_LIBS)} kernels in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
     s = Smoke(card, dev)
     resources = resource_report(s, libs)
@@ -1995,6 +2228,8 @@ def main() -> int:
     log(f"paint at e1m1-scale B=32: kernel {kern_ms32:.4f} ms, plain "
         f"PyTorch {plain_ms32:.2f} ms  [{card}]")
     del demo, e1, masked, d1, args32
+    r_probes = probes_cell(s)
+    torch.cuda.empty_cache()
 
     # ---- 3. the main paths at full size, timed ----------------------------
     r_paint = paint_cell(s)
@@ -2041,6 +2276,20 @@ def main() -> int:
         row("itempass", "doomtpu_torch/ops/csrc/itempass.cu",
             "doomtpu/ops/pallas_itempass.py:57", r_ip["itempass"],
             max(err["itempass"], r_ip["itempass"]["max_abs_err"])),
+        *[dict(row(name, f"doomtpu_torch/ops/csrc/{src}.cu", replaces,
+                   r_probes[name], r_probes[name]["max_abs_err"]),
+               library_ms=r_probes[name].get("library_ms"),
+               **{k: r_probes[name][k] for k in ("iterations",)
+                  if k in r_probes[name]})
+          for name, src, replaces in (
+              ("probe_visit", "probe_visit",
+               "scripts/probe_visit_cost.py:31"),
+              ("probe_exact1", "probe_visit",
+               "scripts/probe_visit_cost.py:301"),
+              ("probe_exact3", "probe_visit",
+               "scripts/probe_visit_cost.py:350"),
+              ("probe_ybounds", "probe_ybounds",
+               "scripts/probe_percam_ybounds.py:141"))],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

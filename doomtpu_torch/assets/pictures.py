@@ -8,9 +8,10 @@ Decoded form: dense [h, w] uint8 palette indices + [h, w] bool opacity
 mask — the reference's Vec<Vec<Option<u8>>> (bitmap.rs:10-15) split into
 two planes, which is what fixed-shape device gathers want.
 
-The JAX package also has a C++ fast path (native/doomdec.cpp, through
-doomtpu/ops/native.py); this copy keeps only the NumPy decode, which is
-that path's own fallback and oracle.
+A C++ fast path (ops/csrc/doomdec.cpp, through ops/native.py) decodes
+large batches once it is built; the NumPy implementation below is the
+always-available fallback and the oracle the native path is tested
+against.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from doomtpu_torch.ops import native
 
 
 @dataclass
@@ -45,6 +48,11 @@ def decode_picture(raw: np.ndarray, name: str = "?") -> Picture:
     h = int(raw[2:4].view("<i2")[0])
     left = int(raw[4:6].view("<i2")[0])
     top = int(raw[6:8].view("<i2")[0])
+
+    decoded = native.decode_picture(raw, w, h)
+    if decoded is not None:
+        pixels, mask = decoded
+        return Picture(name, w, h, left, top, pixels, mask)
 
     pixels = np.zeros((h, w), dtype=np.uint8)
     mask = np.zeros((h, w), dtype=bool)

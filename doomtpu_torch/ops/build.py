@@ -1,16 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface and includes the shared
-`csrc/layout.cuh`; a library of `VARIANTS` is a source built with extra
-defines (the paint kernel's cost-probe levels).  At first use it is
-compiled by nvcc into
+Each `csrc/<name>.cu` has a plain C interface (the four kernels include
+the shared `csrc/layout.cuh`; the Hopper probes' `probe_visit.cu` and
+`probe_ybounds.cu` stand alone); a library of `VARIANTS` is a source
+built with extra defines (the paint kernel's cost-probe levels).  At
+first use it is compiled by nvcc into
 `build/doomtpu_torch/` at the root of the checkout (a directory
 .gitignore lists) and loaded with ctypes; the library's file name
 carries a hash of the source, the headers and the flags, so an edited
 source or header is rebuilt.  A library that reads seg rows reports its
 row width, which must equal ops/layout.py's NR.  There is no fallback:
 a missing nvcc, a card other than Hopper, a failed build or a row width
-that disagrees raises.
+that disagrees raises.  The host library `csrc/doomdec.cpp` (the picture
+decoder, ops/native.py) is built the same way by `build_host_library`,
+with the host C++ compiler.
 """
 
 from __future__ import annotations
@@ -102,6 +105,22 @@ _SIGNATURES = {
         "doom_scan_error_string": ([_I], _C.c_char_p),
         "doom_scan_blocks_per_sm": ([_I], _I),
         "doom_row_words": ([], _I),
+    },
+    "probe_visit": {
+        "probe_visit": (
+            [_I, _I, _I, _P, _P, _I, _I, _P, _P],  # construct blocks threads
+            #                                         x t n arg out stream
+            _I,
+        ),
+        "probe_exact": ([_I, _P, _P, _P, _P], _I),  # passes w s out stream
+        "probe_visit_names": ([], _C.c_char_p),
+        "probe_visit_error_string": ([_I], _C.c_char_p),
+    },
+    "probe_ybounds": {
+        "probe_ybounds": ([_I, _P, _P, _I, _P, _P], _I),  # mode lo hi S out
+        #                                                   stream
+        "probe_ybounds_names": ([], _C.c_char_p),
+        "probe_ybounds_error_string": ([_I], _C.c_char_p),
     },
 }
 
@@ -223,6 +242,58 @@ def load_library(name: str) -> ctypes.CDLL:
         )
     _loaded[name] = lib
     return lib
+
+
+def sass(name: str) -> str:
+    """The SASS of the built library `name` (cuobjdump -sass, from the
+    toolkit of the nvcc that built it)."""
+    nvcc = nvcc_path()
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.exists():
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    build_libraries(name)
+    out = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name}:\n{out.stderr}")
+    return out.stdout
+
+
+# host libraries: csrc/<name>.cpp built with the host C++ compiler (no
+# card needed), flags as native/Makefile builds the JAX package's copy
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+
+
+def cxx_path() -> str | None:
+    return (os.environ.get("CXX") and shutil.which(os.environ["CXX"])) or \
+        shutil.which("g++") or shutil.which("c++")
+
+
+def host_library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host_library(name: str) -> Path:
+    """Build csrc/<name>.cpp into build/doomtpu_torch/ unless built;
+    returns the library's path.  Raises without a C++ compiler or on a
+    failed build."""
+    path = host_library_path(name)
+    if path.exists():
+        return path
+    cxx = cxx_path()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (CXX, g++, c++)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    out = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
+                          str(CSRC / f"{name}.cpp")],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on {name}:\n{out.stderr}")
+    os.replace(tmp, path)
+    return path
 
 
 def ptxas_resources(log: str) -> dict[str, dict]:

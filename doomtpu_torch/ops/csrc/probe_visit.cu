@@ -1,0 +1,463 @@
+// Hopper probes P1-P3: the price of one construct of K1-K3's loops on
+// this card, and whether a one-hot product on the tensor cores copies
+// f32 data exactly.
+//
+// Replaces scripts/probe_visit_cost.py: `run` (:31) and its 17 construct
+// kernels (P1), `main6.kern` (:301, P2) and `main7.kern` (:350, P3).
+// The plain PyTorch versions are in doomtpu_torch/ops/probe_visit.py.
+//
+// P1 (visit_kernel<C>): construct C repeated n times into an (8, 128)
+// accumulator.  A TPU construct works on one (8, 128) vector register; a
+// thread here owns one element of it, (s, l) = ((g >> 7) & 7, g & 127)
+// for global thread g, so one block of 1024 threads computes the TPU
+// kernel's output element for element, and every further 1024 threads a
+// copy of it (K1's occupancy, 132 x 4 blocks of 256 threads: the price
+// while every SM holds 32 warps, as under K1).  The tensor-core
+// constructs give a warp an n-tile instead: output columns 8j..8j+7 of
+// rows 0-7 (mma.sync's fragment), two elements a thread, a copy per 512
+// threads.  Each construct is the one that plays the TPU construct's part
+// on Hopper:
+//
+//   math          32 chained (a*3)^(a>>1) in registers
+//   branch(_f)    a warp-uniform `if` (a __any_sync vote) that fires every
+//                 other iteration / never; body a shared-memory
+//                 read-modify-write
+//   branch_div    the same `if` taken by half the lanes of each warp
+//   relayout      a read of the thread's element of an 8-value row of a
+//                 shared-memory table, at row i & 63
+//   dynload       a load at the dynamic row ((i*37) & 63) * 8 + s of a
+//                 (512, 128) table: 256 KB, above the 227 KB of shared
+//                 memory a block may use, so it is read through L1
+//   gather_l2     a dependent load from a 4 MB table (resident in L2, as
+//                 K1's texel, flat and sky tables are) at an index hashed
+//                 from the accumulator; each copy starts its own chains
+//   smem          8 uniform reads of an (8, 64) global table and a select
+//                 chain
+//   fori0         a rolled loop whose runtime bounds give 0 trips
+//   colbcast13    one row load into shared memory, then 13 field reads of
+//                 it (K1's row[R_*])
+//   lanegather13  a warp loads 32 words of its row; 13 __shfl_sync
+//                 broadcasts
+//   mxu*          one-hot products through mma.sync m16n8k8 TF32
+//   branchy_*     a branch that consumes 13 fields, from mma.sync / from
+//                 plain loads
+//   fdiv/fmulrcp  8 chained __fdiv_rn / __fmul_rn by the reciprocal a
+//                 step (K1 divides per row, paint.cu:56-60)
+//
+// Why mma.sync m16n8k8 and not wgmma: the TPU probe asks what one field
+// broadcast through the matrix unit costs inside a per-column loop, and
+// whether its result is exact.  That is one warp's product at a time, in
+// registers, inside a thread's loop; wgmma is a 64-row warpgroup tile fed
+// from shared memory, for large products, and has no place in such a
+// loop.  mma.sync takes the A rows 0-7 (rows 8-15 are zero padding) and an
+// 8-column n-tile; a (8, K) x (K, 128) product is K/8 chained k-steps a
+// tile.  At 64 registers a thread (32 warps an SM) neither operand can
+// stay in registers across the 13 products of a step, so the product and
+// k-step loops stay rolled and each k-step loads its two A and two B
+// words (L1 hits but for the 13 distinct selectors, 832 KB, from L2).
+// `HIGHEST` splits A into three TF32 pieces (hi, mid, lo) with one
+// accumulator each, added with IEEE f32 adds at the end: each piece's
+// one-hot product is exact, and so is (lo + mid) + hi, so the result is
+// the f32 product on any input.  Whether one shared accumulator keeps the
+// sum exact is P3's question, not P1's.
+//
+// What bounds it on the card: the operations each construct needs
+// (ops/probe_visit.py::NEEDS: its own loads, arithmetic, shuffles and
+// branches, and for the mma constructs their useful TF32 FMAs at 1024 a
+// clock an SM) over issue and each pipe's rate, except where latency
+// rules: gather_l2 (L2), the divide chain, the mma constructs' rolled
+// operand loads.  The loop's SASS counted by class is a diagnostic
+// beside it (ops/probe_visit.py::construct_sass).
+//
+// P2 / P3 (exact_kernel<P>): the 8 (8, 128) x (128, 128) one-hot
+// products of main6 / main7 on one block of 16 warps (warp j the n-tile
+// j), TF32 operands from cvt.rna.tf32.f32 (round to nearest, ties away).
+// P = 1: one pass.  P = 3: A split into hi, mid and lo pieces, three
+// mma.sync passes summed in ONE f32 accumulator (lo, mid, hi), so the
+// tensor core's own accumulate decides the sum.  Output: the (64, 128)
+// bit patterns, rows 8f..8f+7 the product with selector f.
+//
+// Numerics: -fmad=false; every f32 add, multiply and divide is an
+// IEEE-rounded intrinsic, as in the plain versions.
+
+#include <cstdint>
+#include <utility>
+
+#include <cuda_runtime.h>
+
+#define ROLLED _Pragma("unroll 1")
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int ROWS = 8, LANES = 128, WINDOWS = 64;
+constexpr int FIELDS = 13;          // fields a seg visit reads (the probes' 13)
+constexpr int CHAIN = 8;            // fdiv / fmulrcp: operations a step
+constexpr int GATHER_SHIFT = 12;    // gather_l2: a 2^20-word table
+constexpr int MAX_THREADS = 1024;
+
+// the order of ops/probe_visit.py::CONSTRUCTS
+enum Construct {
+  MATH, BRANCH, BRANCH_F, BRANCH_DIV, RELAYOUT, DYNLOAD, GATHER_L2, SMEM,
+  FORI0, COLBCAST13, LANEGATHER13, MXUBCAST, MXUBCAST13, MXU13DIFF,
+  MXU13HI, MXU48HI, MXU13CVT, BRANCHY_MXU, BRANCHY_LD, FDIV, FMULRCP,
+  N_CONSTRUCTS
+};
+const char* const NAMES =
+    "math,branch,branch_f,branch_div,relayout,dynload,gather_l2,smem,fori0,"
+    "colbcast13,lanegather13,mxubcast,mxubcast13,mxu13diff,mxu13hi,mxu48hi,"
+    "mxu13cvt,branchy_mxu,branchy_ld,fdiv,fmulrcp";
+
+__host__ __device__ constexpr bool is_mma(int c) {
+  return c >= MXUBCAST && c <= BRANCHY_MXU;
+}
+
+struct Args {
+  const void* x;   // the construct's input
+  const void* t;   // its table, selectors or divisors (or null)
+  int n;           // iterations
+  int arg;         // fori0: the inner loop's trip count (the TPU's 0)
+  int* out;        // [copies, 8, 128]
+};
+
+__device__ __forceinline__ uint32_t tf32(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// d += A B, one m16n8k8 TF32 tile; A's rows 8-15 are zero
+__device__ __forceinline__ void mma8(float (&d)[4], uint32_t a0, uint32_t a2,
+                                     uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// x = hi + mid + lo, each a TF32 value (exact: each difference is)
+__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  hi = tf32(x);
+  const float r1 = __fsub_rn(x, __uint_as_float(hi));
+  mid = tf32(r1);
+  lo = tf32(__fsub_rn(r1, __uint_as_float(mid)));
+}
+
+// A warp's n-tile j (columns 8j..8j+7) of rows 0-7 of W[8, K] (row
+// stride 128) x S[K, 128] from a zero accumulator, S at `sel` words
+// into `S0`, for the thread with A offset `ao0` (row gr, column tq) and
+// B offset `bo0` (row tq, column 8j + gr): its outputs (gr, 8j + 2tq)
+// and (gr, 8j + 2tq + 1).  P = 1: TF32 operands, one pass; P = 3: A in
+// three pieces, an accumulator each, summed in f32.  ADD: A is W + add,
+// rounded once (mxubcast13).  The k-step loop stays rolled: a step's
+// four operand words are all a thread holds (unrolled, the compiler
+// hoists the loads of later steps and spills at 64 registers).
+template <int K, int P, bool ADD>
+__device__ __forceinline__ float2 dot_tile(const float* w, const float* S0,
+                                           int sel, int ao0, int bo0,
+                                           float add) {
+  float d[P][4] = {};
+  ROLLED for (int kk = 0; kk < K / 8; ++kk) {
+    const int ao = ao0 + 8 * kk, bo = bo0 + sel + 8 * kk * LANES;
+    float x0 = __ldg(w + ao);
+    float x2 = __ldg(w + ao + 4);
+    if constexpr (ADD) {
+      x0 = __fadd_rn(x0, add);
+      x2 = __fadd_rn(x2, add);
+    }
+    const uint32_t b0 = tf32(__ldg(S0 + bo));
+    const uint32_t b1 = tf32(__ldg(S0 + bo + 4 * LANES));
+    if constexpr (P == 1) {
+      mma8(d[0], tf32(x0), tf32(x2), b0, b1);
+    } else {
+      uint32_t h0, m0, l0, h2, m2, l2;
+      split3(x0, h0, m0, l0);
+      split3(x2, h2, m2, l2);
+      mma8(d[0], l0, l2, b0, b1);
+      mma8(d[1], m0, m2, b0, b1);
+      mma8(d[2], h0, h2, b0, b1);
+    }
+  }
+  if constexpr (P == 1)
+    return make_float2(d[0][0], d[0][1]);
+  else
+    return make_float2(__fadd_rn(__fadd_rn(d[0][0], d[1][0]), d[2][0]),
+                       __fadd_rn(__fadd_rn(d[0][1], d[1][1]), d[2][1]));
+}
+
+template <int C>
+__device__ void mma_construct(const Args& a) {
+  constexpr int K = (C == MXU48HI || C == MXU13CVT || C == BRANCHY_MXU)
+                        ? 48 : LANES;
+  constexpr int P = (C == MXUBCAST || C == MXUBCAST13 || C == MXU13DIFF)
+                        ? 1 : 3;
+  // selector f: one (128, 128) identity for the broadcasts, else the
+  // f-th (K, 128) block
+  constexpr int SEL_STRIDE = (C == MXUBCAST || C == MXUBCAST13)
+                                 ? 0 : K * LANES;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int wg = g >> 5, lane = threadIdx.x & 31;
+  const int j = wg & 15, gr = lane >> 2, tq = lane & 3;
+  const int ao0 = gr * LANES + tq, bo0 = tq * LANES + 8 * j + gr;
+  const float* x = static_cast<const float*>(a.x);
+  const float* S = static_cast<const float*>(a.t);
+  float facc[2] = {0.f, 0.f};
+  int iacc[2] = {0, 0};
+  ROLLED for (int i = 0; i < a.n; ++i) {
+    const float* w = x + (i & (WINDOWS - 1)) * ROWS * LANES;
+    if constexpr (C == BRANCHY_MXU) {
+      // field 0 decides the branch, which consumes the sum of the rest
+      int v0 = 0, v1 = 0, t0 = 0, t1 = 0;
+      ROLLED for (int f = 0; f < FIELDS; ++f) {
+        const float2 d = dot_tile<K, P, false>(w, S, f * SEL_STRIDE, ao0,
+                                               bo0, 0.f);
+        if (f == 0) {
+          v0 = (int)d.x;
+          v1 = (int)d.y;
+        } else {
+          t0 += (int)d.x;
+          t1 += (int)d.y;
+        }
+      }
+      if (__any_sync(FULL, v0 + i > -1 || v1 + i > -1)) {
+        iacc[0] += t0;
+        iacc[1] += t1;
+      }
+    } else {
+      ROLLED for (int f = 0; f < FIELDS; ++f) {
+        const float2 d = dot_tile<K, P, C == MXUBCAST13>(
+            w, S, f * SEL_STRIDE, ao0, bo0, (float)f);
+        if constexpr (C == MXU13CVT) {
+          iacc[0] += (int)d.x;
+          iacc[1] += (int)d.y;
+        } else {
+          facc[0] = __fadd_rn(facc[0], d.x);
+          facc[1] = __fadd_rn(facc[1], d.y);
+        }
+      }
+    }
+  }
+  int* o = a.out + (wg >> 4) * ROWS * LANES + gr * LANES + 8 * j + 2 * tq;
+  if constexpr (C == MXU13CVT || C == BRANCHY_MXU) {
+    o[0] = iacc[0];
+    o[1] = iacc[1];
+  } else {
+    o[0] = (int)facc[0];
+    o[1] = (int)facc[1];
+  }
+}
+
+template <int C>
+__device__ void elem_construct(const Args& a, int* sm) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = (g >> 7) & (ROWS - 1), l = g & (LANES - 1);
+  const int* xi = static_cast<const int*>(a.x);
+  const float* xf = static_cast<const float*>(a.x);
+  int acc = 0;
+  if constexpr (C == MATH) {
+    unsigned u = (unsigned)xi[s * LANES + l];
+    ROLLED for (int i = 0; i < a.n; ++i) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k) u = (u * 3u) ^ (unsigned)((int)u >> 1);
+    }
+    acc = (int)u;
+  } else if constexpr (C == BRANCH || C == BRANCH_F || C == BRANCH_DIV) {
+    volatile int* o = sm + threadIdx.x;
+    const int xv = xi[s * LANES + l];
+    *o = xv;
+    ROLLED for (int i = 0; i < a.n; ++i) {
+      bool take;
+      if constexpr (C == BRANCH) take = __any_sync(FULL, (xv + i) & 1);
+      else if constexpr (C == BRANCH_F) take = __any_sync(FULL, xv + i < -5);
+      else take = (xv + i + l) & 1;
+      if (take) *o = *o + 1;
+    }
+    acc = *o;
+  } else if constexpr (C == RELAYOUT) {
+    for (int k = threadIdx.x; k < WINDOWS * ROWS; k += blockDim.x)
+      sm[k] = xi[k];
+    __syncthreads();
+    ROLLED for (int i = 0; i < a.n; ++i)
+      acc += sm[(i & (WINDOWS - 1)) * ROWS + s];
+  } else if constexpr (C == DYNLOAD) {
+    ROLLED for (int i = 0; i < a.n; ++i)
+      acc += __ldg(xi + (((i * 37) & (WINDOWS - 1)) * ROWS + s) * LANES + l);
+  } else if constexpr (C == GATHER_L2) {
+    // each copy its own chains (start + 1024 x copy): copies on one SM
+    // must not hit each other's lines in L1
+    const int* tab = static_cast<const int*>(a.t);
+    unsigned u = (unsigned)xi[s * LANES + l] + (unsigned)(g & ~1023);
+    ROLLED for (int i = 0; i < a.n; ++i) {
+      const unsigned h = u * 0x61C88647u + (unsigned)i;
+      u += (unsigned)__ldg(tab + (h >> GATHER_SHIFT));
+    }
+    acc = (int)u;
+  } else if constexpr (C == SMEM) {
+    ROLLED for (int i = 0; i < a.n; ++i) {
+      const int c = i & (WINDOWS - 1);
+      int v = __ldg(xi + c);
+#pragma unroll
+      for (int b = 1; b < ROWS; ++b) {
+        const int tb = __ldg(xi + b * WINDOWS + c);
+        v = s == b ? tb : v;
+      }
+      acc += v;
+    }
+  } else if constexpr (C == FORI0) {
+    ROLLED for (int i = 0; i < a.n; ++i) {
+      ROLLED for (int k = i; k < i + a.arg; ++k) {
+        acc += 1;
+        asm volatile("" : "+r"(acc));
+      }
+    }
+  } else if constexpr (C == COLBCAST13) {
+    ROLLED for (int i = 0; i < a.n; ++i) {
+      // one buffer a parity: one barrier an iteration
+      int* w = sm + (i & 1) * blockDim.x;
+      w[threadIdx.x] =
+          __ldg(xi + ((i & (WINDOWS - 1)) * ROWS + s) * LANES + l);
+      __syncthreads();
+      const int* row = w + (threadIdx.x & ~(LANES - 1));
+#pragma unroll
+      for (int r = 0; r < FIELDS; ++r) acc += row[r];
+    }
+  } else if constexpr (C == LANEGATHER13) {
+    const int lane = threadIdx.x & 31;
+    ROLLED for (int i = 0; i < a.n; ++i) {
+      const int v =
+          __ldg(xi + ((i & (WINDOWS - 1)) * ROWS + s) * LANES + lane);
+#pragma unroll
+      for (int f = 0; f < FIELDS; ++f) acc += __shfl_sync(FULL, v, f);
+    }
+  } else if constexpr (C == BRANCHY_LD) {
+    ROLLED for (int i = 0; i < a.n; ++i) {
+      const float* w = xf + ((i & (WINDOWS - 1)) * ROWS + s) * LANES;
+      int v[FIELDS];
+#pragma unroll
+      for (int f = 0; f < FIELDS; ++f) v[f] = (int)__ldg(w + f);
+      if (__any_sync(FULL, v[0] + i > -1)) {
+        int t = v[1] + v[2];
+#pragma unroll
+        for (int f = 3; f < FIELDS; ++f) t += v[f];
+        acc += t;
+      }
+    }
+  } else if constexpr (C == FDIV || C == FMULRCP) {
+    const float dv = static_cast<const float*>(a.t)[s * LANES + l];
+    float v = xf[s * LANES + l];
+    ROLLED for (int i = 0; i < a.n; ++i) {
+#pragma unroll
+      for (int k = 0; k < CHAIN; ++k)
+        v = C == FDIV ? __fdiv_rn(v, dv) : __fmul_rn(v, dv);
+    }
+    acc = __float_as_int(v);
+  }
+  a.out[g] = acc;
+}
+
+template <int C>
+__global__ void __launch_bounds__(MAX_THREADS, 1) visit_kernel(const Args a) {
+  extern __shared__ int sm[];
+  if constexpr (is_mma(C)) mma_construct<C>(a);
+  else elem_construct<C>(a, sm);
+}
+
+template <int P>
+__global__ void __launch_bounds__(512) exact_kernel(const float* w,
+                                                    const float* S,
+                                                    int* out) {
+  const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  for (int f = 0; f < ROWS; ++f) {
+    const float* sel = S + f * LANES * LANES;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < LANES / 8; ++kk) {
+      const int k0 = 8 * kk + tq;
+      const float x0 = w[gr * LANES + k0], x2 = w[gr * LANES + k0 + 4];
+      const uint32_t b0 = tf32(sel[k0 * LANES + 8 * j + gr]);
+      const uint32_t b1 = tf32(sel[(k0 + 4) * LANES + 8 * j + gr]);
+      if constexpr (P == 1) {
+        mma8(d, tf32(x0), tf32(x2), b0, b1);
+      } else {
+        uint32_t h0, m0, l0, h2, m2, l2;
+        split3(x0, h0, m0, l0);
+        split3(x2, h2, m2, l2);
+        mma8(d, l0, l2, b0, b1);
+        mma8(d, m0, m2, b0, b1);
+        mma8(d, h0, h2, b0, b1);
+      }
+    }
+    int* o = out + (f * ROWS + gr) * LANES + 8 * j + 2 * tq;
+    o[0] = __float_as_int(d[0]);
+    o[1] = __float_as_int(d[1]);
+  }
+}
+
+// dynamic shared memory of construct C's block of `threads`
+size_t smem_bytes(int c, int threads) {
+  switch (c) {
+    case BRANCH: case BRANCH_F: case BRANCH_DIV:
+      return (size_t)threads * sizeof(int);
+    case RELAYOUT: return (size_t)WINDOWS * ROWS * sizeof(int);
+    case COLBCAST13: return 2 * (size_t)threads * sizeof(int);
+    default: return 0;
+  }
+}
+
+template <int C>
+cudaError_t launch(int blocks, int threads, const Args& a,
+                   cudaStream_t stream) {
+  visit_kernel<C><<<blocks, threads, smem_bytes(C, threads), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int... Cs>
+cudaError_t dispatch(int c, int blocks, int threads, const Args& a,
+                     cudaStream_t stream,
+                     std::integer_sequence<int, Cs...>) {
+  cudaError_t e = cudaErrorInvalidValue;
+  ((c == Cs ? (e = launch<Cs>(blocks, threads, a, stream), 0) : 0), ...);
+  return e;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Construct `construct` (the index of its name in probe_visit_names)
+// n times on blocks x threads threads; out holds one (8, 128) copy per
+// 1024 threads (512 for the mma constructs).
+int probe_visit(int construct, int blocks, int threads, const void* x,
+                const void* t, int n, int arg, int* out, void* stream) {
+  if (construct < 0 || construct >= N_CONSTRUCTS || blocks < 1
+      || threads < 32 || threads > MAX_THREADS || threads % 32 != 0
+      || (long long)blocks * threads % (is_mma(construct) ? 512 : 1024))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, t, n, arg, out};
+  return (int)dispatch(construct, blocks, threads, a, (cudaStream_t)stream,
+                       std::make_integer_sequence<int, N_CONSTRUCTS>{});
+}
+
+// P2 (passes 1) or P3 (passes 3): w [8, 128] f32, S [8 * 128, 128] f32,
+// out [64, 128] i32
+int probe_exact(int passes, const float* w, const float* S, int* out,
+                void* stream) {
+  if (passes == 1)
+    exact_kernel<1><<<1, 512, 0, (cudaStream_t)stream>>>(w, S, out);
+  else if (passes == 3)
+    exact_kernel<3><<<1, 512, 0, (cudaStream_t)stream>>>(w, S, out);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+const char* probe_visit_names() { return NAMES; }
+
+const char* probe_visit_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

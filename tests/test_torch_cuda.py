@@ -1,6 +1,8 @@
 """Tests that need a CUDA card: the paint, item, item-pass and wall-scan
 kernels against their plain PyTorch versions (on tall and wide screens
-too, and the paint kernel under a live-seg cap that drops segs), and
+too, and the paint kernel under a live-seg cap that drops segs), the
+Hopper probes P1-P4 against theirs (every construct at both launch
+shapes, small N and S), and
 render / render_walls on the card against the same calls on the CPU, on
 the paint path (`use_pallas_paint=True`) and on the scan + resolve
 pipeline.
@@ -30,6 +32,8 @@ from doomtpu_torch.config import RenderConfig  # noqa: E402
 from doomtpu_torch.ops import itempass as tip  # noqa: E402
 from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
+from doomtpu_torch.ops import probe_visit as pv  # noqa: E402
+from doomtpu_torch.ops import probe_ybounds as pyb  # noqa: E402
 from doomtpu_torch.ops import scan as ts  # noqa: E402
 from doomtpu_torch.render import camera as cam  # noqa: E402
 from doomtpu_torch.render import things  # noqa: E402
@@ -455,3 +459,41 @@ def test_calibrate_on_card_equals_cpu(engines):
     got = calibrated_config(card, chain_card, cache=False)
     assert ts.scan.launches >= 3          # one per state's geometry census
     assert got == calibrated_config(cpu, chain_cpu, cache=False)
+
+
+@pytest.mark.parametrize("name", pv.CONSTRUCTS)
+def test_probe_construct_equals_plain_version(cuda, name):
+    """P1: each construct at N = 64, on one block of 1024 threads and at
+    K1's occupancy, against its plain version on the card."""
+    x, t, arg = pv.device_inputs(cuda)[name]
+    for blocks, threads in pv.configs(cuda).values():
+        copies = pv.copies_of(name, blocks, threads)
+        want = pv.construct_reference(name, x, t, pv.CHECK_N, arg, copies)
+        before = pv.construct.launches
+        got = pv.construct(name, x, t, pv.CHECK_N, arg, blocks, threads)
+        torch.cuda.synchronize()
+        assert pv.construct.launches == before + 1
+        assert got.shape[0] == copies
+        assert torch.equal(got, want), (name, blocks)
+
+
+def test_probe_exactness_kernels(cuda):
+    """P2 equals its plain version (TF32 operands) on every input; on the
+    control input (exact in TF32) P2 and P3 equal the exact broadcast."""
+    s = torch.from_numpy(pv.exact_selectors()).to(cuda)
+    for name, w_np in pv.exact_inputs().items():
+        w = torch.from_numpy(w_np).to(cuda)
+        assert torch.equal(pv.exact1(w, s), pv.exact1_reference(w, s)), name
+        if name == "control":
+            assert torch.equal(pv.exact1(w, s), pv.broadcast(w))
+            assert torch.equal(pv.exact3(w, s), pv.broadcast(w))
+
+
+@pytest.mark.parametrize("s", [pyb.CHECK_S, pyb.S])
+def test_probe_ybounds_equals_plain_version(cuda, s):
+    """P4: every mode against its plain version, at 64 emissions and at
+    the probe's 4096."""
+    lo, hi = (torch.from_numpy(v).to(cuda) for v in pyb.ybounds_inputs(s))
+    for mode in pyb.MODES:
+        got = pyb.ybounds(lo, hi, mode)
+        assert torch.equal(got, pyb.ybounds_reference(lo, hi, mode)), mode
