@@ -15,7 +15,9 @@ rows tall, rendered against the CPU port), then the Hopper probes P1-P4
 its plain version, then the probes' own path with its counts set to 0
 just before and read just after: every P1 construct timed at both
 launch shapes beside its SASS bound, P2's and P3's one-hot exactness
-beside torch.matmul's, P4's row-bound modes; and the native picture
+beside torch.matmul's, their times in turns with torch.matmul and
+their price of a field product at full-card occupancy, P4's row-bound
+modes; and the native picture
 decoder, built with the host C++ compiler, on four WADs' pictures), and
 drives the port's main paths with 4096 spread cameras at 320x200, the
 paint path asked for
@@ -72,6 +74,13 @@ It needs a CUDA card and fails without one: nothing moves to the CPU.
 times the e1m1-scale cell's render_walls and render through the port in
 two checkouts (say, a parent commit unpacked under build/ and this
 tree) on the same card, alternating A B B A, one process per timing.
+
+    python3 chip_smoke.py --ab-exact ROOT_A ROOT_B [ROOT_C ...]
+
+times P2 and P3 (one copy in turns with torch.matmul, device-paced and
+eager; the price of a field at full-card occupancy where the checkout
+has it) the same way through each checkout, by this script's own timing
+code.
 """
 
 from __future__ import annotations
@@ -227,13 +236,25 @@ def differing(pairs: dict) -> tuple[int, dict]:
     return worst, diffs
 
 
-def event_ms(fn, n):
-    """Mean device ms of n calls after a warm one (CUDA events)."""
+# event_ms(spin=True): spin cycles queued ahead of each timed call (~100
+# us at 1.98 GHz, longer than the host takes to queue one)
+SPIN_CYCLES = 200_000
+
+
+def event_ms(fn, n, spin=False):
+    """Mean device ms of n calls after a warm one (CUDA events).  spin:
+    the n calls are queued behind a spin kernel (torch.cuda._sleep) long
+    enough that they run back to back on the card, so that the host's
+    cost of a call does not pace a call shorter than it (device time);
+    else a call shorter than its host cost is timed at the host's pace
+    (eager time)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES * n)
     a.record()
     for _ in range(n):
         fn()
@@ -1785,14 +1806,20 @@ def probes_cell(s: Smoke) -> dict:
     """The Hopper probes P1-P4 (ops/probe_visit.py, ops/probe_ybounds.py).
     First each probe kernel against its plain version on the card: every
     P1 construct at N = 64 on both launch shapes, P2 on every input, P2
-    and P3 on the control input (exact in TF32), P4 every mode at S = 64
-    and 4096; 0 differing elements.  Then the probes' own path, with
-    their counts set to 0 just before and read after: every construct
-    at N = 40000 on both shapes beside its bound (the operations it
-    needs, ops/probe_visit.py::NEEDS) and its SASS count, P2's and P3's bad
-    counts, P4's modes at S = 4096; then torch.matmul's bad counts and
-    time on P2 / P3's operands (TF32 allowed and not), and the native
-    picture decoder.  Returns the four kernel rows' numbers."""
+    and P3 on the control input (exact in TF32), at one copy and at
+    OCCUPANCY_COPIES (every copy written, and one slice written), P4
+    every mode at S = 64 and 4096; 0
+    differing elements.  Then the probes' own path, with their counts
+    set to 0 just before and read after: every construct at N = 40000
+    on both shapes beside its bound (the operations it needs,
+    ops/probe_visit.py::NEEDS) and its SASS count, P2's and P3's bad
+    counts, their turns with torch.matmul (TF32 allowed for P2, not for
+    P3; exact_turns) and their price of a field at full-card occupancy,
+    written and one slice written (exact_price), beside P1's, P4's
+    modes at S = 4096; then torch.matmul's bad counts on P2 / P3's
+    operands, and the native picture decoder.  A
+    spill in P2 / P3's kernel fails.  Returns the four kernel rows'
+    numbers."""
     import torch
 
     from doomtpu_torch.ops import build
@@ -1811,6 +1838,8 @@ def probes_cell(s: Smoke) -> dict:
             if r.get("spill_stores") or r.get("spill_loads"):
                 spills[fn] = r
     log(f"probe kernels that spill registers: {json.dumps(spills)}")
+    check(not any("exact_kernel" in fn for fn in spills),
+          f"P2 / P3 (exact_kernel) spill registers: {json.dumps(spills)}")
     diff = lambda g, r: (int((g != r).sum()),
                          int((g.long() - r.long()).abs().max()))
     fdiff = lambda g, r: float((g.view(torch.float32).double()
@@ -1860,6 +1889,22 @@ def probes_cell(s: Smoke) -> dict:
         if name == "f32":    # the input the kernels are timed on
             rows["probe_exact1"]["plain_ms"] = ms1
             rows["probe_exact3"]["plain_ms"] = ms3
+        # the full-card shape: every copy written, and one slice written
+        n_occ = pv.OCCUPANCY_COPIES
+        for stored in (n_occ, 1):
+            n_bad = int((pv.exact1(w, sel, n_occ, stored)
+                         != pv.exact1_reference(w, sel, n_occ, stored)).sum())
+            check(n_bad == 0, f"P2 {name} x {n_occ} copies, {stored} "
+                  f"written: differs from its plain version in {n_bad} "
+                  f"elements")
+            if name == "control":
+                exact = pv.broadcast(w)
+                n_bad = [int((fn(w, sel, n_occ, stored) != exact).sum())
+                         for fn in (pv.exact1, pv.exact3)]
+                check(n_bad == [0, 0], f"P2 / P3 x {n_occ} copies, {stored} "
+                      f"written, differ from the exact broadcast on the "
+                      f"control input in {n_bad} elements")
+            torch.cuda.empty_cache()
     for n_emit in (pyb.CHECK_S, pyb.S):
         lo, hi = (torch.from_numpy(v).to(dev)
                   for v in pyb.ybounds_inputs(n_emit))
@@ -1872,7 +1917,8 @@ def probes_cell(s: Smoke) -> dict:
                   f"differ from the plain version")
             if n_emit == pyb.S:
                 rows["probe_ybounds"]["plain_ms"] += ms
-    log(f"P2 on 3 inputs, P3 and P2 on the control input, P4's "
+    log(f"P2 on 3 inputs, P3 and P2 on the control input (at 1 and "
+        f"{pv.OCCUPANCY_COPIES} copies, all or one written), P4's "
         f"{len(pyb.MODES)} modes at S={pyb.CHECK_S} and {pyb.S}: equal to "
         f"their plain versions  [{card}]")
 
@@ -1885,9 +1931,9 @@ def probes_cell(s: Smoke) -> dict:
     p1 = pv.measure(dev, reps=2, card=card, log=log)
     pv.exactness(dev, card=card, log=log)
     w = ws["f32"]
-    ms_exact = {k: event_ms(lambda: fn(w, sel), 20)
-                for k, fn in (("probe_exact1", pv.exact1),
-                              ("probe_exact3", pv.exact3))}
+    turns = exact_turns(pv, dev)
+    price = exact_price(pv, dev, pv.OCCUPANCY_COPIES)
+    log_exact(turns, price, pv.p1_field_ns(p1, dev), card)
     p4 = pyb.measure(dev, card=card, log=log)
     for k, fn in counted.items():
         rows[k]["launches"] = fn.launches
@@ -1909,11 +1955,18 @@ def probes_cell(s: Smoke) -> dict:
         iterations={"ms": pv.N, "bound_ms": pv.N, "plain_ms": pv.CHECK_N})
     # P2 / P3: the one-hot products' bytes and TF32 operations
     bytes_moved = (w.numel() + sel.numel() + 64 * 128) * 4
-    for k, passes in (("probe_exact1", 1), ("probe_exact3", 3)):
+    # ms and library_ms: the device-paced turns at one copy (exact_turns;
+    # the eager ones beside them), and the price at full-card occupancy
+    for k, label, passes in (("probe_exact1", "P2", 1),
+                             ("probe_exact3", "P3", 3)):
         t_bytes = bytes_moved / HBM_BYTES_PER_S
         t_ops = passes * 8 * 2 * 8 * 128 * 128 / TF32_OPS_PER_S
-        rows[k].update(ms=ms_exact[k], bound_ms=max(t_bytes, t_ops) * 1e3,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+        r = turns[label]
+        rows[k].update(ms=r["ms"], bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       library_ms=r["library_ms"], eager_ms=r["eager_ms"],
+                       eager_library_ms=r["eager_library_ms"],
+                       occupancy=price[label])
     # torch.matmul of the same operands, one (8, 128) x (128, 1024) call
     operand = sel.reshape(8, 128, 128).permute(1, 0, 2).reshape(128, 1024)
     for k, tf32 in (("probe_exact1", True), ("probe_exact3", False)):
@@ -1923,10 +1976,9 @@ def probes_cell(s: Smoke) -> dict:
             out = torch.matmul(wi, operand).reshape(8, 8, 128).permute(
                 1, 0, 2).reshape(64, 128).contiguous().view(torch.int32)
             bad[name] = int((out != pv.broadcast(wi)).sum())
-        rows[k]["library_ms"] = event_ms(lambda: torch.matmul(w, operand),
-                                         20)
         log(f"torch.matmul (allow_tf32={tf32}) of P2 / P3's operands: bad "
-            f"{json.dumps(bad)}, {rows[k]['library_ms']:.4f} ms  [{card}]")
+            f"{json.dumps(bad)}, {rows[k]['library_ms']:.4f} ms (device, "
+            f"in turns with the kernel)  [{card}]")
     torch.backends.cuda.matmul.allow_tf32 = False
     # P4: each mode reads the bounds once and writes the counts once; its
     # operations are its +1s (empty: one add a lo word)
@@ -1943,6 +1995,95 @@ def probes_cell(s: Smoke) -> dict:
         log(f"{k}: {json.dumps(r)}  [{card}]")
     check_native_decoder(card)
     return rows
+
+
+def exact_turns(pv, dev, reps: int = 20) -> dict:
+    """P2 and P3 at one copy on main6's f32 input, in turns with
+    torch.matmul of the same operands ((8, 128) x (128, 1024); P2 against
+    allow_tf32=True, P3 against False): kernel, matmul, matmul, kernel,
+    each the mean of `reps` calls, first device-paced (event_ms with
+    spin), then eager.  `pv` is the ops/probe_visit of any checkout (its
+    exact1 / exact3 taking (w, s)), so a parent commit is timed by the
+    same code.  Returns "P2" / "P3" -> {"ms", "library_ms" (device
+    time), "eager_ms", "eager_library_ms", "turns_ms",
+    "eager_turns_ms"}."""
+    import torch
+
+    s = torch.from_numpy(pv.exact_selectors()).to(dev)
+    w = torch.from_numpy(pv.exact_inputs()["f32"]).to(dev)
+    operand = s.reshape(8, 128, 128).permute(1, 0, 2).reshape(128, 1024)
+    was = torch.backends.cuda.matmul.allow_tf32
+    res = {}
+    for label, fn, tf32 in (("P2", pv.exact1, True), ("P3", pv.exact3, False)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        kern = lambda: fn(w, s)
+        lib = lambda: torch.matmul(w, operand)
+        turns = (kern, lib, lib, kern)
+        dev_t = [event_ms(f, reps, spin=True) for f in turns]
+        eager_t = [event_ms(f, reps) for f in turns]
+        res[label] = {"ms": (dev_t[0] + dev_t[3]) / 2,
+                      "library_ms": (dev_t[1] + dev_t[2]) / 2,
+                      "eager_ms": (eager_t[0] + eager_t[3]) / 2,
+                      "eager_library_ms": (eager_t[1] + eager_t[2]) / 2,
+                      "turns_ms": dev_t, "eager_turns_ms": eager_t}
+    torch.backends.cuda.matmul.allow_tf32 = was
+    return res
+
+
+def exact_price(pv, dev, copies: int, reps: int = 3) -> dict:
+    """P2 and P3's price of a field product at full-card occupancy:
+    `copies` copies of the 8 products, the mean of `reps` calls after a
+    warm one, written (stored = copies, the function) and run with one
+    slice written (stored = 1: the tensor cores' and shared memory's
+    part without the output's HBM bytes); ns a field product an SM, time
+    x SMs / (copies x 8), beside the TF32 FMA and byte bounds
+    (pv.field_bounds_ns).  Returns "P2" / "P3" -> numbers."""
+    import torch
+
+    s = torch.from_numpy(pv.exact_selectors()).to(dev)
+    w = torch.from_numpy(pv.exact_inputs()["f32"]).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(pv._smi("clocks.max.sm"))
+    res = {}
+    for label, fn, passes in (("P2", pv.exact1, 1), ("P3", pv.exact3, 3)):
+        r = {"copies": copies}
+        for key, stored in (("", copies), ("_one_slice", 1)):
+            ms = event_ms(lambda: fn(w, s, copies, stored), reps)
+            bounds = pv.field_bounds_ns(passes, copies, sms, mhz, stored)
+            r.update({f"occupancy_ms{key}": ms,
+                      f"ns_per_field{key}": ms * 1e6 * sms / (copies * 8),
+                      f"bytes_ns{key}": bounds["bytes"]})
+        r["fma_ns"] = bounds["fma"]
+        r["mhz"] = mhz
+        res[label] = r
+        torch.cuda.empty_cache()
+    return res
+
+
+def log_exact(turns: dict, price: dict | None, p1_ns: dict, card: str,
+              reps: int = 20) -> None:
+    for label, r in turns.items():
+        tf32 = label == "P2"
+        log(f"{label} (64, 128) against torch.matmul (allow_tf32={tf32}), "
+            f"turns kernel / matmul / matmul / kernel, ms of {reps} calls: "
+            f"device {' / '.join(f'{t:.5f}' for t in r['turns_ms'])}; "
+            f"eager {' / '.join(f'{t:.5f}' for t in r['eager_turns_ms'])}"
+            f"  [{card}]")
+        if price is None:
+            continue
+        q = price[label]
+        log(f"{label} at full-card occupancy, {q['copies']} copies: "
+            f"{q['occupancy_ms']:.4f} ms, {q['ns_per_field']:.2f} ns a field "
+            f"product an SM (bytes bound {q['bytes_ns']:.2f}); one slice "
+            f"written: {q['occupancy_ms_one_slice']:.4f} ms, "
+            f"{q['ns_per_field_one_slice']:.2f} ns (bytes bound "
+            f"{q['bytes_ns_one_slice']:.2f}); TF32 FMA bound "
+            f"{q['fma_ns']:.2f} at {q['mhz']:.0f} MHz: "
+            f"{q['ns_per_field'] / q['fma_ns']:.2f}x / "
+            f"{q['ns_per_field_one_slice'] / q['fma_ns']:.2f}x"
+            + "".join(f"; P1 {k} {v:.2f} ns a field product an SM at K1 "
+                      f"occupancy" for k, v in p1_ns.items())
+            + f"  [{card}]")
 
 
 def resource_report(s: Smoke, libs) -> dict:
@@ -2086,6 +2227,65 @@ def compare_trees(roots: list[str], rounds: int = 2) -> int:
                 f"{sum(ms) / len(ms):.3f} ms/batch, min {min(ms):.3f}, max "
                 f"{max(ms):.3f} over {len(ms)} processes, peak "
                 f"{max(r[path]['peak_gib'] for r in rs):.2f} GiB  [{card}]")
+    return 0
+
+
+def time_exact(root: str) -> int:
+    """--time-exact ROOT: P2 and P3 through the ops/probe_visit of the
+    checkout ROOT (this tree or another commit's), timed by this
+    script's exact_turns (and exact_price where that checkout's
+    wrappers take copies); prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import doomtpu_torch
+    from doomtpu_torch.ops import build
+    from doomtpu_torch.ops import probe_visit as pv
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    check(os.path.dirname(os.path.dirname(doomtpu_torch.__file__))
+          == os.path.abspath(root), f"doomtpu_torch not imported from {root}")
+    build.build_libraries("probe_visit")
+    dev = torch.device("cuda", 0)
+    got = {"root": root, "turns": exact_turns(pv, dev)}
+    if hasattr(pv, "OCCUPANCY_COPIES"):
+        got["price"] = exact_price(pv, dev, pv.OCCUPANCY_COPIES)
+    print(json.dumps(got), flush=True)
+    return 0
+
+
+def compare_exact(roots: list[str], rounds: int = 2) -> int:
+    """--ab-exact ROOT ...: P2 and P3 timed through several checkouts on
+    one card, in the order A B ... B A per round, each timing in a
+    process of its own (--time-exact); prints every timing, then per
+    tree and number the mean, min and max."""
+    check(len(roots) >= 2, "--ab-exact takes two or more checkout roots")
+    card = card_line()
+    log(card)
+    runs = {r: [] for r in roots}
+    for _ in range(rounds):
+        for root in (*roots, *reversed(roots)):
+            p = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--time-exact",
+                 root], capture_output=True, text=True, timeout=600)
+            check(p.returncode == 0,
+                  f"timing {root} failed:\n{p.stdout}\n{p.stderr[-4000:]}")
+            got = json.loads(p.stdout.strip().splitlines()[-1])
+            log(json.dumps(got))
+            runs[root].append(got)
+    for root, rs in runs.items():
+        for label in ("P2", "P3"):
+            vals = {k: [r["turns"][label][k] for r in rs]
+                    for k in ("ms", "library_ms", "eager_ms",
+                              "eager_library_ms")}
+            if all("price" in r for r in rs):
+                vals.update({k: [r["price"][label][k] for r in rs]
+                             for k in ("ns_per_field",
+                                       "ns_per_field_one_slice")})
+            log(f"{label} under {root}: " + ", ".join(
+                f"{k} mean {sum(v) / len(v):.6g} min {min(v):.6g} max "
+                f"{max(v):.6g}" for k, v in vals.items())
+                + f" over {len(rs)} processes  [{card}]")
     return 0
 
 
@@ -2279,7 +2479,7 @@ def main() -> int:
         *[dict(row(name, f"doomtpu_torch/ops/csrc/{src}.cu", replaces,
                    r_probes[name], r_probes[name]["max_abs_err"]),
                library_ms=r_probes[name].get("library_ms"),
-               **{k: r_probes[name][k] for k in ("iterations",)
+               **{k: r_probes[name][k] for k in ("iterations", "occupancy")
                   if k in r_probes[name]})
           for name, src, replaces in (
               ("probe_visit", "probe_visit",
@@ -2303,4 +2503,8 @@ if __name__ == "__main__":
         sys.exit(time_paint_cell(sys.argv[2]))
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(compare_trees(sys.argv[2:]))
+    if sys.argv[1:2] == ["--time-exact"]:
+        sys.exit(time_exact(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-exact"]:
+        sys.exit(compare_exact(sys.argv[2:]))
     sys.exit(main())

@@ -112,7 +112,8 @@ _SIGNATURES = {
             #                                         x t n arg out stream
             _I,
         ),
-        "probe_exact": ([_I, _P, _P, _P, _P], _I),  # passes w s out stream
+        "probe_exact": ([_I, _P, _P, _P, _I, _I, _P], _I),  # passes w s
+        #                                           out copies stored stream
         "probe_visit_names": ([], _C.c_char_p),
         "probe_visit_error_string": ([_I], _C.c_char_p),
     },

@@ -70,16 +70,44 @@
 // beside it (ops/probe_visit.py::construct_sass).
 //
 // P2 / P3 (exact_kernel<P>): the 8 (8, 128) x (128, 128) one-hot
-// products of main6 / main7 on one block of 16 warps (warp j the n-tile
-// j), TF32 operands from cvt.rna.tf32.f32 (round to nearest, ties away).
-// P = 1: one pass.  P = 3: A split into hi, mid and lo pieces, three
-// mma.sync passes summed in ONE f32 accumulator (lo, mid, hi), so the
-// tensor core's own accumulate decides the sum.  Output: the (64, 128)
-// bit patterns, rows 8f..8f+7 the product with selector f.
+// products of main6 / main7, out[f] = w S[f], TF32 operands from
+// cvt.rna.tf32.f32 (round to nearest, ties away).  P = 1: one pass.
+// P = 3: w split into hi, mid and lo pieces, three mma.sync passes
+// summed in ONE f32 accumulator (lo, mid, hi each k-step), so the tensor
+// core's own accumulate decides the sum.  Output: `copies` (64, 128)
+// slices of bit patterns, rows 8f..8f+7 the product with selector f.
+//
+// What bounds it: bytes.  One copy reads w (4 KB) and S (512 KB) and
+// writes 32 KB: 0.17 us at 3.35 TB/s, against 0.004 us of the card's
+// TF32 FMAs (P3: 0.013).  What sets its time at one copy: the launch,
+// then one product's latency (a 20 KB stage and a chain of 16, P3 48,
+// dependent mma.sync).
+// The design: each product is transposed, out[f]^T = S[f]^T w^T, so the
+// 128 output lanes fill m16n8k8's 16 rows and w's 8 rows its N = 8 (no
+// zero padding).  A block of 2 warps takes one selector and 32 lanes (a
+// warp one 16-lane m-tile, all of K in one accumulator), so one copy is
+// 32 blocks on 32 SMs, each reading 1/32 of S.  A block stages its
+// (128, 32) slab of S[f] with 16-byte cp.async into padded shared
+// memory; while that is in flight it reads w with 16-byte loads and
+// splits it into its TF32 pieces once, into shared memory, permuted so a
+// thread's (b0, b1) of a k-step are one conflict-free 8-byte read; one
+// barrier, then each warp holds its selector fragments in registers for
+// the block's life.  Copies (full-card occupancy: as many layers of 32
+// blocks as the card holds at once, each block walking copies z, z +
+// layers, ...) run two a warp side by side while two are left, each
+// product reading w's fragments from shared memory (volatile loads, so
+// the price of a field with its data in shared memory is what a copy
+// measures); the output goes out as 16-byte stores through a padded
+// tile per warp.  Only copies c < `stored` are written: stored = copies
+// is the function, stored = 1 runs every copy's products but writes one
+// slice, so the occupancy price can be read with and without the
+// output's HBM write (the mma results stay live: whether a copy is
+// stored is known only at run time).
 //
 // Numerics: -fmad=false; every f32 add, multiply and divide is an
 // IEEE-rounded intrinsic, as in the plain versions.
 
+#include <algorithm>
 #include <cstdint>
 #include <utility>
 
@@ -126,14 +154,47 @@ __device__ __forceinline__ uint32_t tf32(float f) {
   return r;
 }
 
-// d += A B, one m16n8k8 TF32 tile; A's rows 8-15 are zero
-__device__ __forceinline__ void mma8(float (&d)[4], uint32_t a0, uint32_t a2,
-                                     uint32_t b0, uint32_t b1) {
+// d += A B, one m16n8k8 TF32 tile: A's fragment a0..a3 is (gr, tq),
+// (gr + 8, tq), (gr, tq + 4), (gr + 8, tq + 4); B's b0, b1 (tq, gr),
+// (tq + 4, gr); d (gr, 2tq), (gr, 2tq + 1), (gr + 8, 2tq), (gr + 8,
+// 2tq + 1), for lane 4gr + tq
+__device__ __forceinline__ void mma16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                      uint32_t a2, uint32_t a3, uint32_t b0,
+                                      uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// the same with A's rows 8-15 zero
+__device__ __forceinline__ void mma8(float (&d)[4], uint32_t a0, uint32_t a2,
+                                     uint32_t b0, uint32_t b1) {
+  mma16(d, a0, 0u, a2, 0u, b0, b1);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+               ::: "memory");
+}
+
+// an 8-byte shared-memory read that neither compiler may hoist out of a
+// loop or merge with another
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.volatile.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
 }
 
 // x = hi + mid + lo, each a TF32 value (exact: each difference is)
@@ -364,36 +425,176 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) visit_kernel(const Args a) {
   else elem_construct<C>(a, sm);
 }
 
-template <int P>
-__global__ void __launch_bounds__(512) exact_kernel(const float* w,
-                                                    const float* S,
-                                                    int* out) {
-  const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  for (int f = 0; f < ROWS; ++f) {
-    const float* sel = S + f * LANES * LANES;
-    float d[4] = {0.f, 0.f, 0.f, 0.f};
+// P2 / P3's block: EXACT_TILES warps, each one 16-lane m-tile of one
+// selector's product
+constexpr int EXACT_TILES = 2;
+constexpr int EXACT_LANES = 16 * EXACT_TILES;      // output lanes a block
+constexpr int EXACT_GROUPS = LANES / EXACT_LANES;  // blocks a selector
+constexpr int EXACT_THREADS = 32 * EXACT_TILES;
+constexpr int KSTEPS = LANES / 8;
+static_assert(ROWS * KSTEPS % EXACT_THREADS == 0, "w's k-steps a thread");
+// padded row strides (words): the slab's a0..a3 reads, the pieces'
+// 8-byte (b0, b1) reads and the output tile's writes each hit 32 banks
+constexpr int SLAB_STRIDE = EXACT_LANES + 8;
+constexpr int PIECE_STRIDE = LANES + 8;
+constexpr int TILE_STRIDE = 16 + 4;
+
+// NC copies' products side by side, one accumulator each (P = 3: lo,
+// mid, hi into it every k-step); the selector's fragments `a` in
+// registers, w's read from shared memory at `b_at` for every product,
+// k-step kk + 1's while kk's products run
+template <int P, int NC>
+__device__ __forceinline__ void products(float (&d)[NC][4],
+                                         const uint32_t (&a)[KSTEPS][4],
+                                         uint32_t b_at) {
+  uint2 b[2][P][NC];
+  auto load = [&](uint2(&bk)[P][NC], int kk) {
 #pragma unroll
-    for (int kk = 0; kk < LANES / 8; ++kk) {
-      const int k0 = 8 * kk + tq;
-      const float x0 = w[gr * LANES + k0], x2 = w[gr * LANES + k0 + 4];
-      const uint32_t b0 = tf32(sel[k0 * LANES + 8 * j + gr]);
-      const uint32_t b1 = tf32(sel[(k0 + 4) * LANES + 8 * j + gr]);
-      if constexpr (P == 1) {
-        mma8(d, tf32(x0), tf32(x2), b0, b1);
-      } else {
-        uint32_t h0, m0, l0, h2, m2, l2;
-        split3(x0, h0, m0, l0);
-        split3(x2, h2, m2, l2);
-        mma8(d, l0, l2, b0, b1);
-        mma8(d, m0, m2, b0, b1);
-        mma8(d, h0, h2, b0, b1);
-      }
-    }
-    int* o = out + (f * ROWS + gr) * LANES + 8 * j + 2 * tq;
-    o[0] = __float_as_int(d[0]);
-    o[1] = __float_as_int(d[1]);
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        bk[p][j] = lds64(b_at + 4 * (p * ROWS * PIECE_STRIDE + 8 * kk));
+  };
+  load(b[0], 0);
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    if (kk + 1 < KSTEPS) load(b[(kk + 1) & 1], kk + 1);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        mma16(d[j], a[kk][0], a[kk][1], a[kk][2], a[kk][3],
+              b[kk & 1][p][j].x, b[kk & 1][p][j].y);
   }
+}
+
+// grid (EXACT_GROUPS, 8 selectors, layers): block (g, f, z) computes
+// lanes 32g..32g+31 of out[c][8f..8f+7] for copies c = z, z + layers, ...
+// (written for c < stored)
+template <int P>
+__global__ void __launch_bounds__(EXACT_THREADS) exact_kernel(
+    const float* __restrict__ w, const float* __restrict__ S,
+    int* __restrict__ out, int copies, int stored) {
+  __shared__ __align__(16) float slab[LANES][SLAB_STRIDE];  // S[f][:, l0..]
+  // TF32 pieces of w (P = 3: lo, mid, hi), a row's k-step kk at 8kk..8kk+7
+  // in the order k0, k0 + 4, k0 + 1, k0 + 5, ... (k0 = 8kk)
+  __shared__ __align__(16) uint32_t piece[P][ROWS][PIECE_STRIDE];
+  __shared__ __align__(16) float tile[EXACT_TILES][ROWS][TILE_STRIDE];
+  const int f = blockIdx.y, l0 = blockIdx.x * EXACT_LANES;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+
+  constexpr int SLAB_CHUNKS = EXACT_LANES / 4;
+  const float* sel = S + (size_t)f * LANES * LANES + l0;
+  for (int i = t; i < LANES * SLAB_CHUNKS; i += EXACT_THREADS) {
+    const int k = i / SLAB_CHUNKS, c = i % SLAB_CHUNKS;
+    cp_async16(&slab[k][4 * c], sel + k * LANES + 4 * c);
+  }
+  // while the slab is in flight: w's k-steps g = t, t + 64 (row g / 16,
+  // k0 = 8 (g % 16)), two 16-byte loads each, split once a block
+#pragma unroll
+  for (int n = 0; n < ROWS * KSTEPS / EXACT_THREADS; ++n) {
+    const int g = t + n * EXACT_THREADS, s = g / KSTEPS;
+    const int k0 = 8 * (g % KSTEPS);
+    const float4 u = __ldg(reinterpret_cast<const float4*>(w + s * LANES
+                                                           + k0));
+    const float4 v = __ldg(reinterpret_cast<const float4*>(w + s * LANES
+                                                           + k0 + 4));
+    const float x[8] = {u.x, v.x, u.y, v.y, u.z, v.z, u.w, v.w};
+    uint32_t pc[P][8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if constexpr (P == 1) pc[0][e] = tf32(x[e]);
+      else split3(x[e], pc[2][e], pc[1][e], pc[0][e]);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      *reinterpret_cast<uint4*>(&piece[p][s][k0]) =
+          make_uint4(pc[p][0], pc[p][1], pc[p][2], pc[p][3]);
+      *reinterpret_cast<uint4*>(&piece[p][s][k0 + 4]) =
+          make_uint4(pc[p][4], pc[p][5], pc[p][6], pc[p][7]);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // A = S[f]^T: this warp's m-tile, lanes l0 + 16 warp .. + 15
+  const int m = 16 * warp + gr;
+  uint32_t a[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const int k = 8 * kk + tq;
+    a[kk][0] = tf32(slab[k][m]);
+    a[kk][1] = tf32(slab[k][m + 8]);
+    a[kk][2] = tf32(slab[k + 4][m]);
+    a[kk][3] = tf32(slab[k + 4][m + 8]);
+  }
+  // B = w^T: (b0, b1) = (w[gr][k0 + tq], w[gr][k0 + tq + 4])
+  const uint32_t b_at = smem_addr(&piece[0][gr][2 * tq]);
+  float(*tl)[TILE_STRIDE] = tile[warp];
+  // out[c][8f + s][l0 + 16 warp + l] from the accumulator's (l, s) =
+  // (gr, 2tq), (gr, 2tq + 1), (gr + 8, 2tq), (gr + 8, 2tq + 1): through
+  // the tile, one 16-byte store a lane
+  auto store = [&](const float(&d)[4], int c) {
+    if (c >= stored) return;
+    __syncwarp();
+    tl[2 * tq][gr] = d[0];
+    tl[2 * tq + 1][gr] = d[1];
+    tl[2 * tq][gr + 8] = d[2];
+    tl[2 * tq + 1][gr + 8] = d[3];
+    __syncwarp();
+    const int r = lane >> 2, q = 4 * (lane & 3);
+    *reinterpret_cast<float4*>(
+        out + ((size_t)c * ROWS * ROWS + f * ROWS + r) * LANES + l0
+        + 16 * warp + q) = *reinterpret_cast<const float4*>(&tl[r][q]);
+  };
+  // copies two at a time while two are left (so one copy runs one chain;
+  // two chains a warp made P3 3-10% faster than one at full-card
+  // occupancy, PERF.md)
+  const int layers = gridDim.z;
+  ROLLED for (int c = blockIdx.z; c < copies; c += 2 * layers) {
+    if (c + layers < copies) {
+      float d[2][4] = {};
+      products<P, 2>(d, a, b_at);
+      store(d[0], c);
+      store(d[1], c + layers);
+    } else {
+      float d[1][4] = {};
+      products<P, 1>(d, a, b_at);
+      store(d[0], c);
+    }
+  }
+}
+
+// layers of 32 exact_kernel<P> blocks the card holds at once
+template <int P>
+cudaError_t exact_layers(int& layers) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev, sms, per;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, exact_kernel<P>, EXACT_THREADS, 0);
+    if (e != cudaSuccess) return e;
+    cached = std::max(1, sms * per / (EXACT_GROUPS * ROWS));
+  }
+  layers = cached;
+  return cudaSuccess;
+}
+
+template <int P>
+cudaError_t launch_exact(const float* w, const float* S, int* out,
+                         int copies, int stored, cudaStream_t stream) {
+  int layers;
+  const cudaError_t e = exact_layers<P>(layers);
+  if (e != cudaSuccess) return e;
+  layers = std::min(layers, (copies + 1) / 2);
+  exact_kernel<P><<<dim3(EXACT_GROUPS, ROWS, layers), EXACT_THREADS, 0,
+                    stream>>>(w, S, out, copies, stored);
+  return cudaGetLastError();
 }
 
 // dynamic shared memory of construct C's block of `threads`
@@ -442,16 +643,17 @@ int probe_visit(int construct, int blocks, int threads, const void* x,
 }
 
 // P2 (passes 1) or P3 (passes 3): w [8, 128] f32, S [8 * 128, 128] f32,
-// out [64, 128] i32
+// out [stored, 64, 128] i32 (copies' products run, the first `stored`
+// written), every pointer 16-byte aligned
 int probe_exact(int passes, const float* w, const float* S, int* out,
-                void* stream) {
-  if (passes == 1)
-    exact_kernel<1><<<1, 512, 0, (cudaStream_t)stream>>>(w, S, out);
-  else if (passes == 3)
-    exact_kernel<3><<<1, 512, 0, (cudaStream_t)stream>>>(w, S, out);
-  else
+                int copies, int stored, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (copies < 1 || stored < 1 || stored > copies
+      || ((uintptr_t)w | (uintptr_t)S | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (passes == 1) return (int)launch_exact<1>(w, S, out, copies, stored, st);
+  if (passes == 3) return (int)launch_exact<3>(w, S, out, copies, stored, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* probe_visit_names() { return NAMES; }

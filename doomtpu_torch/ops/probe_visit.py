@@ -18,14 +18,18 @@ votes over its whole vector (`.any()`), the Hopper one votes over a warp
 
 P2 / P3: the 8 one-hot products (8, 128) x (128, 128) of `main6` /
 `main7`, as their (64, 128) i32 bit patterns; rows 8f..8f+7 hold field f
-of w broadcast over the lanes when the products are exact.
+of w broadcast over the lanes when the products are exact.  `copies` > 1
+repeats the 8 products into [copies, 64, 128] (every copy equal): the
+shape that fills the card, where chip_smoke.py prices one field product
+(`field_bounds_ns`); `stored` = 1 runs every copy but writes only the
+first, the same price without the output's bytes.
 
     python -m doomtpu_torch.ops.probe_visit
 
 prints, on the card, every construct's time per iteration at one block
 of 1024 threads and at K1's occupancy (4 blocks of 256 threads an SM)
-beside its bound, and P2's and P3's exactness, as the JAX script prints
-them (`name ... ns/iter`, `mxuexact f32: exact=... bad=...`).
+beside its bound, and P2's and P3's exactness, as the JAX script
+prints them (`name ... ns/iter`, `mxuexact f32: exact=... bad=...`).
 """
 
 from __future__ import annotations
@@ -46,6 +50,13 @@ CHECK_N = 64       # iterations where the plain version is compared
 ROWS, LANES, WINDOWS, FIELDS = 8, 128, 64, 13
 GATHER_WORDS = 1 << 20
 CHAIN = 8          # fdiv / fmulrcp: chained operations an iteration
+# P2 / P3 at full-card occupancy: copies of the 8 products (512 MB of
+# output, a few hundred us on an H100)
+OCCUPANCY_COPIES = 16384
+# the H100 SXM data sheet: HBM bytes/s; TF32 FMAs a clock an SM (495
+# dense TFLOP/s over 132 SMs at the boost clock)
+HBM_BYTES_PER_S = 3.35e12
+TF32_FMA_PER_CLOCK = 1024
 
 # the order of csrc/probe_visit.cu's Construct enum
 CONSTRUCTS = (
@@ -368,59 +379,88 @@ def broadcast(w) -> torch.Tensor:
     return bits.t().reshape(ROWS * ROWS, 1).expand(ROWS * ROWS, LANES)
 
 
-def _check_exact(w, s):
-    for what, v, shape in (("w", w, (ROWS, LANES)),
-                           ("s", s, (ROWS * LANES, LANES))):
-        if v.dtype != F32 or tuple(v.shape) != shape or \
-                not v.is_contiguous() or v.device != w.device:
-            raise ValueError(f"probe_exact: {what} must be a contiguous "
-                             f"f32 {shape} on w's device")
+def _check_exact(w, s, copies, stored):
+    # one expression: the host's cost of a call is most of P2 / P3's time
+    # at one copy
+    if not (isinstance(w, torch.Tensor) and isinstance(s, torch.Tensor)
+            and w.dtype == F32 and s.dtype == F32
+            and w.shape == (ROWS, LANES) and s.shape == (ROWS * LANES, LANES)
+            and w.is_contiguous() and s.is_contiguous()
+            and w.device == s.device):
+        raise ValueError(f"probe_exact: w and s must be contiguous f32 "
+                         f"{(ROWS, LANES)} and {(ROWS * LANES, LANES)} on "
+                         f"one device")
+    if type(copies) is not int or copies < 1:
+        raise ValueError(f"probe_exact: copies must be an int >= 1, got "
+                         f"{copies!r}")
+    if type(stored) is not int or not 1 <= stored <= copies:
+        raise ValueError(f"probe_exact: stored must be an int in [1, "
+                         f"copies={copies}], got {stored!r}")
 
 
-def _exact_reference(w, s, passes):
-    _check_exact(w, s)
+def _exact_reference(w, s, passes, copies, stored):
+    stored = copies if stored is None else stored
+    _check_exact(w, s, copies, stored)
     sel = s.reshape(ROWS, LANES, LANES)
     out = torch.stack([_dot(w, sel[f], passes == 1, True)
                        for f in range(ROWS)])               # [f, s, l]
-    return out.reshape(ROWS * ROWS, LANES).view(I32)
+    one = out.reshape(ROWS * ROWS, LANES).view(I32)
+    return one if copies == 1 else one.repeat(stored, 1, 1)
 
 
-def exact1_reference(w, s) -> torch.Tensor:
+def exact1_reference(w, s, copies: int = 1,
+                     stored: int | None = None) -> torch.Tensor:
     """P2's plain version: each product of TF32 operands (cvt.rna) with
-    exact products and one rounding, as bits [64, 128] i32."""
-    return _exact_reference(w, s, 1)
+    exact products and one rounding, as bits [64, 128] i32; copies > 1:
+    [stored, 64, 128] (stored defaults to copies), every slice the same,
+    each its own memory."""
+    return _exact_reference(w, s, 1, copies, stored)
 
 
-def exact3_reference(w, s) -> torch.Tensor:
-    """P3's plain version: the exact f32 products, as bits."""
-    return _exact_reference(w, s, 3)
+def exact3_reference(w, s, copies: int = 1,
+                     stored: int | None = None) -> torch.Tensor:
+    """P3's plain version: the exact f32 products, as bits (shapes as
+    exact1_reference's)."""
+    return _exact_reference(w, s, 3, copies, stored)
 
 
-def _exact(w, s, passes):
-    _check_exact(w, s)
-    if w.device.type == "cpu":
-        return _exact_reference(w, s, passes)
-    if w.device.type != "cuda":
-        raise ValueError(f"probe_exact: no kernel for device {w.device}")
-    lib = _lib()
-    out = torch.empty((ROWS * ROWS, LANES), dtype=I32, device=w.device)
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    _raise(lib, lib.probe_exact(passes, _p(w), _p(s), _p(out),
-                                ctypes.c_void_p(stream)), "probe_exact")
+def _exact(w, s, passes, copies, stored):
+    stored = copies if stored is None else stored
+    _check_exact(w, s, copies, stored)
+    dev = w.device
+    if dev.type == "cpu":
+        return _exact_reference(w, s, passes, copies, stored)
+    if dev.type != "cuda":
+        raise ValueError(f"probe_exact: no kernel for device {dev}")
+    wp, sp = w.data_ptr(), s.data_ptr()
+    if (wp | sp) % 16:
+        raise ValueError("probe_exact: w and s must be 16-byte aligned "
+                         "(the kernel reads them 16 bytes at a time)")
+    out = torch.empty((ROWS * ROWS, LANES) if copies == 1
+                      else (stored, ROWS * ROWS, LANES),
+                      dtype=I32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().probe_exact(passes, wp, sp, out.data_ptr(), copies, stored,
+                             stream)
+    if err:
+        _raise(_lib(), err, "probe_exact")
     (exact1 if passes == 1 else exact3).launches += 1
     return out
 
 
-def exact1(w, s) -> torch.Tensor:
+def exact1(w, s, copies: int = 1, stored: int | None = None) -> torch.Tensor:
     """P2: the one-pass TF32 one-hot products on the tensor cores
-    (csrc/probe_visit.cu) for CUDA tensors, `exact1_reference` on CPU."""
-    return _exact(w, s, 1)
+    (csrc/probe_visit.cu) for CUDA tensors, `exact1_reference` on CPU:
+    (64, 128) i32; copies > 1: the 8 products run `copies` times, the
+    first `stored` (default all) written, [stored, 64, 128]."""
+    return _exact(w, s, 1, copies, stored)
 
 
-def exact3(w, s) -> torch.Tensor:
+def exact3(w, s, copies: int = 1, stored: int | None = None) -> torch.Tensor:
     """P3: the three-piece products summed in one tensor-core accumulator
-    for CUDA tensors; `exact3_reference` (the exact products) on CPU."""
-    return _exact(w, s, 3)
+    for CUDA tensors; `exact3_reference` (the exact products) on CPU;
+    shapes as exact1's."""
+    return _exact(w, s, 3, copies, stored)
 
 
 exact1.launches = 0
@@ -727,6 +767,34 @@ def exactness(dev, card: str = "", log=print) -> dict:
             log(f"{label} {name}: exact={bad == 0} bad={bad} "
                 f"(differing from the plain version: {off})  [{card}]")
     return res
+
+
+def field_bounds_ns(passes: int, copies: int, sms: int, mhz: float,
+                    stored: int | None = None) -> dict:
+    """P2 / P3's least ns a field product an SM at `copies`: the TF32
+    FMAs of one (8, 128) x (128, 128) product (per pass) at
+    TF32_FMA_PER_CLOCK, and its share of the bytes (w, S read once, the
+    `stored` output slices, default all, written once) at the HBM rate,
+    over the card's `sms`."""
+    fields = copies * ROWS
+    stored = copies if stored is None else stored
+    moved = 4 * (ROWS * LANES + ROWS * LANES * LANES
+                 + stored * ROWS * ROWS * LANES)
+    return {"fma": passes * ROWS * LANES * LANES / TF32_FMA_PER_CLOCK
+            / mhz * 1e3,
+            "bytes": moved / HBM_BYTES_PER_S * 1e9 * sms / fields}
+
+
+def p1_field_ns(p1: dict, dev) -> dict:
+    """P1's tensor-core broadcasts, mxubcast (one pass) and mxu13hi (three
+    pieces), as ns a field product an SM: their ns an iteration at K1's
+    occupancy (`measure`) over the products an iteration holds (13 a
+    copy), times the card's SMs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, threads = configs(dev)["K1 occupancy"]
+    return {name: p1[name]["ns_per_iter"]["K1 occupancy"] * sms
+            / (copies_of(name, blocks, threads) * FIELDS)
+            for name in ("mxubcast", "mxu13hi")}
 
 
 def main() -> int:

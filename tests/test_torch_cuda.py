@@ -479,14 +479,40 @@ def test_probe_construct_equals_plain_version(cuda, name):
 
 def test_probe_exactness_kernels(cuda):
     """P2 equals its plain version (TF32 operands) on every input; on the
-    control input (exact in TF32) P2 and P3 equal the exact broadcast."""
+    control input (exact in TF32) P2 and P3 equal the exact broadcast;
+    both at one copy and at the full-card shape (every copy written, and
+    one slice of it written); each call one launch."""
     s = torch.from_numpy(pv.exact_selectors()).to(cuda)
-    for name, w_np in pv.exact_inputs().items():
-        w = torch.from_numpy(w_np).to(cuda)
-        assert torch.equal(pv.exact1(w, s), pv.exact1_reference(w, s)), name
-        if name == "control":
-            assert torch.equal(pv.exact1(w, s), pv.broadcast(w))
-            assert torch.equal(pv.exact3(w, s), pv.broadcast(w))
+    n = pv.OCCUPANCY_COPIES
+    for copies, stored in ((1, 1), (n, n), (n, 1)):
+        for name, w_np in pv.exact_inputs().items():
+            w = torch.from_numpy(w_np).to(cuda)
+            before = pv.exact1.launches
+            got = pv.exact1(w, s, copies, stored)
+            assert pv.exact1.launches == before + 1
+            assert torch.equal(
+                got, pv.exact1_reference(w, s, copies, stored)), (
+                name, copies, stored)
+            if name == "control":
+                exact = pv.broadcast(w)
+                if copies > 1:
+                    exact = exact.expand(stored, *exact.shape)
+                assert torch.equal(got, exact), (copies, stored)
+                before = pv.exact3.launches
+                assert torch.equal(pv.exact3(w, s, copies, stored),
+                                   exact), (copies, stored)
+                assert pv.exact3.launches == before + 1
+            del got
+            torch.cuda.empty_cache()
+    with pytest.raises(ValueError):
+        pv.exact1(w, s, 0)
+    with pytest.raises(ValueError):
+        pv.exact1(w, s, 2, 3)
+    # contiguous but not 16-byte aligned: the kernel reads 16 bytes at a
+    # time
+    shifted = torch.zeros(8 * 128 + 1, device=cuda)[1:].view(8, 128)
+    with pytest.raises(ValueError):
+        pv.exact3(shifted, s)
 
 
 @pytest.mark.parametrize("s", [pyb.CHECK_S, pyb.S])

@@ -12,7 +12,9 @@ the scripts build them.
   of cvt.rna.tf32.f32.
 - P2 / P3: `main6`'s and `main7`'s kernels against the port's exact
   broadcast and exact3_reference; exact1_reference against the TF32
-  emulation; on the control input all of them equal.
+  emulation; on the control input all of them equal.  At `copies` > 1
+  the plain versions and the CPU wrappers stack the one-copy output;
+  the wrappers' argument checks; the price of a field's bounds.
 - P4: `make_kernel(mode)` for the five modes at S = 16 against
   ybounds_reference; `band` (no TPU body) against a loop.
 - P1's bound: the operations each construct needs (NEEDS), by class
@@ -248,6 +250,84 @@ def test_exactness_probes_equal_tpu_kernels(which):
         np.testing.assert_array_equal(one, exact)
     else:
         assert (one != exact).any()   # TF32 drops bits of these inputs
+
+
+@pytest.mark.parametrize("copies", [2, 5])
+@pytest.mark.parametrize("passes", [1, 3])
+def test_exact_copies_stack_the_one_copy_output(passes, copies):
+    """P2 / P3 at `copies` > 1: the plain versions, and the wrappers on
+    CPU tensors (the plain path: no launch counted), return `copies`
+    stacked copies of the copies=1 output, [copies, 64, 128], each its
+    own memory; with `stored` the first `stored` of them."""
+    ref = pv.exact1_reference if passes == 1 else pv.exact3_reference
+    fn = pv.exact1 if passes == 1 else pv.exact3
+    s = torch.from_numpy(pv.exact_selectors())
+    for w_np in pv.exact_inputs().values():
+        w = torch.from_numpy(w_np)
+        one = ref(w, s)
+        assert one.shape == (64, 128) and one.dtype == torch.int32
+        assert torch.equal(ref(w, s, 1), one)
+        before = fn.launches
+        for got in (ref(w, s, copies), fn(w, s, copies)):
+            assert got.shape == (copies, 64, 128)
+            for c in range(copies):
+                assert torch.equal(got[c], one)
+            got[0] += 1                     # no slice aliases another
+            assert torch.equal(got[1], one)
+        for stored in (1, copies - 1):
+            for got in (ref(w, s, copies, stored), fn(w, s, copies, stored)):
+                assert got.shape == (stored, 64, 128)
+                assert all(torch.equal(g, one) for g in got)
+        assert torch.equal(fn(w, s), one)
+        assert fn.launches == before
+
+
+@pytest.mark.parametrize("fn", ["exact1", "exact3", "exact1_reference",
+                                "exact3_reference"])
+def test_exact_argument_checks(fn):
+    """copies < 1 (or not an int), stored outside [1, copies] (or not an
+    int), a non-contiguous w or s, a wrong shape or dtype: every entry
+    point raises."""
+    call = getattr(pv, fn)
+    s = torch.from_numpy(pv.exact_selectors())
+    w = torch.from_numpy(pv.exact_inputs()["control"])
+    for copies in (0, -1, 1.0, True, None):
+        with pytest.raises(ValueError):
+            call(w, s, copies)
+    for stored in (0, 4, 2.0):
+        with pytest.raises(ValueError):
+            call(w, s, 3, stored)
+    wide = torch.zeros(8, 256)
+    with pytest.raises(ValueError):
+        call(wide[:, ::2], s)               # non-contiguous w
+    tall = torch.from_numpy(np.repeat(pv.exact_selectors(), 2, 1))
+    with pytest.raises(ValueError):
+        call(w, tall[:, ::2])               # non-contiguous s
+    with pytest.raises(ValueError):
+        call(w.t().contiguous(), s)
+    with pytest.raises(ValueError):
+        call(w.double(), s)
+    with pytest.raises(ValueError):
+        call(w, s[:128])
+
+
+def test_field_bounds():
+    """The price of a field product's bounds, ns an SM: one (8, 128) x
+    (128, 128) product's TF32 FMAs at 1024 a clock (x3 for three
+    pieces), and its share of the bytes over 132 SMs, with every copy's
+    output written or one."""
+    b1 = pv.field_bounds_ns(1, 16384, 132, 1980.0)
+    b3 = pv.field_bounds_ns(3, 16384, 132, 1980.0)
+    assert b1["fma"] == pytest.approx(131072 / 1024 / 1.98)
+    assert b3["fma"] == pytest.approx(3 * b1["fma"])
+    fields = 16384 * 8
+    want = 4 * (1024 + 131072 + fields * 1024) / 3.35e12 * 1e9 * 132 / fields
+    assert b1["bytes"] == pytest.approx(want) == b3["bytes"]
+    assert 161 < b1["bytes"] < 162
+    one = pv.field_bounds_ns(1, 16384, 132, 1980.0, stored=1)
+    want = 4 * (1024 + 131072 + 8192) / 3.35e12 * 1e9 * 132 / fields
+    assert one["bytes"] == pytest.approx(want)
+    assert one["fma"] == b1["fma"]
 
 
 @pytest.fixture(scope="module")
