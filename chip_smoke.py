@@ -14,10 +14,12 @@ rows tall, rendered against the CPU port), then the Hopper probes P1-P4
 (ops/probe_visit.py, ops/probe_ybounds.py: each probe kernel against
 its plain version, then the probes' own path with its counts set to 0
 just before and read just after: every P1 construct timed at both
-launch shapes beside its SASS bound, P2's and P3's one-hot exactness
-beside torch.matmul's, their times in turns with torch.matmul and
-their price of a field product at full-card occupancy, P4's row-bound
-modes; and the native picture
+launch shapes beside its SASS bound, the price of a tensor-core field
+product with w in registers against w from shared memory, P2's and
+P3's one-hot exactness beside torch.matmul's, their times in turns with
+torch.matmul and their price of a field product at full-card
+occupancy, P4's row-bound modes serial and over the full card; and the
+native picture
 decoder, built with the host C++ compiler, on four WADs' pictures), and
 drives the port's main paths with 4096 spread cameras at 320x200, the
 paint path asked for
@@ -77,10 +79,12 @@ tree) on the same card, alternating A B B A, one process per timing.
 
     python3 chip_smoke.py --ab-exact ROOT_A ROOT_B [ROOT_C ...]
 
-times P2 and P3 (one copy in turns with torch.matmul, device-paced and
-eager; the price of a field at full-card occupancy where the checkout
-has it) the same way through each checkout, by this script's own timing
-code.
+times P1's seven tensor-core constructs at both launch shapes, P2 and
+P3 (one copy in turns with torch.matmul, device-paced and eager; the
+price of a field at full-card occupancy where the checkout has it) and
+P4's six modes (serial, and at the full-card chunking where the
+checkout has it) the same way through each checkout, by this script's
+own timing code.
 """
 
 from __future__ import annotations
@@ -1805,21 +1809,24 @@ def check_native_decoder(card: str) -> None:
 def probes_cell(s: Smoke) -> dict:
     """The Hopper probes P1-P4 (ops/probe_visit.py, ops/probe_ybounds.py).
     First each probe kernel against its plain version on the card: every
-    P1 construct at N = 64 on both launch shapes, P2 on every input, P2
-    and P3 on the control input (exact in TF32), at one copy and at
-    OCCUPANCY_COPIES (every copy written, and one slice written), P4
-    every mode at S = 64 and 4096; 0
+    P1 construct at N = 64 on both launch shapes (and mxu13diff / mxu13hi
+    with w read from shared memory at the occupancy shape), P2 on every
+    input, P2 and P3 on the control input (exact in TF32), at one copy
+    and at OCCUPANCY_COPIES (every copy written, and one slice written),
+    P4 every mode at S = 64 and 4096 serial (chunks = 1), at the
+    full-card chunking and at 7 chunks (which divide neither); 0
     differing elements.  Then the probes' own path, with their counts
     set to 0 just before and read after: every construct at N = 40000
     on both shapes beside its bound (the operations it needs,
     ops/probe_visit.py::NEEDS) and its SASS count, P2's and P3's bad
     counts, their turns with torch.matmul (TF32 allowed for P2, not for
     P3; exact_turns) and their price of a field at full-card occupancy,
-    written and one slice written (exact_price), beside P1's, P4's
-    modes at S = 4096; then torch.matmul's bad counts on P2 / P3's
-    operands, and the native picture decoder.  A
-    spill in P2 / P3's kernel fails.  Returns the four kernel rows'
-    numbers."""
+    written and one slice written (exact_price), beside P1's, the price
+    of a field with w in registers against w from shared memory
+    (field_variants), P4's modes at S = 4096 serial and at the full-card
+    chunking; then torch.matmul's bad counts on P2 / P3's operands, and
+    the native picture decoder.  A spill in P1's tensor-core kernels,
+    P2 / P3's or P4's fails.  Returns the four kernel rows' numbers."""
     import torch
 
     from doomtpu_torch.ops import build
@@ -1838,8 +1845,10 @@ def probes_cell(s: Smoke) -> dict:
             if r.get("spill_stores") or r.get("spill_loads"):
                 spills[fn] = r
     log(f"probe kernels that spill registers: {json.dumps(spills)}")
-    check(not any("exact_kernel" in fn for fn in spills),
-          f"P2 / P3 (exact_kernel) spill registers: {json.dumps(spills)}")
+    redesigned = ("mma_kernel", "exact_kernel", "ybounds_kernel")
+    check(not any(k in fn for fn in spills for k in redesigned),
+          f"P1's tensor-core kernels, P2 / P3 or P4 spill registers: "
+          f"{json.dumps(spills)}")
     diff = lambda g, r: (int((g != r).sum()),
                          int((g.long() - r.long()).abs().max()))
     fdiff = lambda g, r: float((g.view(torch.float32).double()
@@ -1849,24 +1858,37 @@ def probes_cell(s: Smoke) -> dict:
             for k in ("probe_visit", "probe_exact1", "probe_exact3",
                       "probe_ybounds")}
     inputs = pv.device_inputs(dev)
-    shapes = pv.configs(dev).values()
     for name in pv.CONSTRUCTS:
         x, t, arg = inputs[name]
-        copies = max(pv.copies_of(name, b, th) for b, th in shapes)
+        shapes = list(pv.configs(dev, name).values())
+        if name in pv.W_FROM_SMEM:    # w's fragments from shared memory
+            shapes.append((*shapes[-1], True))
+        copies = max(pv.copies_of(name, *sh[:2]) for sh in shapes)
         got, ref, ms = against_plain(
-            lambda: [pv.construct(name, x, t, pv.CHECK_N, arg, b, th)
-                     for b, th in shapes],
+            lambda: [pv.construct(name, x, t, pv.CHECK_N, arg, *sh)
+                     for sh in shapes],
             lambda: pv.construct_reference(name, x, t, pv.CHECK_N, arg,
                                            copies))
-        for g in got:
+        for g, sh in zip(got, shapes):
             n_bad, worst = diff(g, ref[:g.shape[0]])
-            check(n_bad == 0, f"probe {name}: {n_bad} elements differ from "
-                  f"the plain version (N={pv.CHECK_N}, {g.shape[0]} copies)")
+            check(n_bad == 0, f"probe {name} {sh}: {n_bad} elements differ "
+                  f"from the plain version (N={pv.CHECK_N}, {g.shape[0]} "
+                  f"copies)")
             rows["probe_visit"]["max_abs_err"] = max(
                 rows["probe_visit"]["max_abs_err"], worst)
         rows["probe_visit"]["plain_ms"] += ms
-    log(f"P1: {len(pv.CONSTRUCTS)} constructs x {len(shapes)} launch shapes "
-        f"equal to their plain versions at N={pv.CHECK_N} (plain versions "
+    # branchy_mxu's vote group: one element's test takes the branch for
+    # its warp's 32 lanes of all 8 rows
+    vx, vt = (torch.from_numpy(v).to(dev) for v in pv.vote_inputs())
+    for sh in pv.configs(dev, "branchy_mxu").values():
+        g = pv.construct("branchy_mxu", vx, vt, 1, 0, *sh)
+        n_bad = diff(g, pv.construct_reference("branchy_mxu", vx, vt, 1, 0,
+                                               g.shape[0]))[0]
+        check(n_bad == 0, f"probe branchy_mxu {sh} on vote_inputs: {n_bad} "
+              f"elements differ from the plain version")
+    log(f"P1: {len(pv.CONSTRUCTS)} constructs x 2 launch shapes (and "
+        f"{', '.join(pv.W_FROM_SMEM)} with w from shared memory) equal to "
+        f"their plain versions at N={pv.CHECK_N} (plain versions "
         f"{rows['probe_visit']['plain_ms']:.1f} ms in all)  [{card}]")
     sel = torch.from_numpy(pv.exact_selectors()).to(dev)
     ws = {k: torch.from_numpy(v).to(dev) for k, v in pv.exact_inputs().items()}
@@ -1910,16 +1932,18 @@ def probes_cell(s: Smoke) -> dict:
                   for v in pyb.ybounds_inputs(n_emit))
         for mode in pyb.MODES:
             got, ref, ms = against_plain(
-                lambda: pyb.ybounds(lo, hi, mode),
+                lambda: [pyb.ybounds(lo, hi, mode, c) for c in (1, None, 7)],
                 lambda: pyb.ybounds_reference(lo, hi, mode))
-            n_bad, worst = diff(got, ref)
-            check(n_bad == 0, f"P4 {mode} S={n_emit}: {n_bad} elements "
-                  f"differ from the plain version")
+            for g, c in zip(got, (1, pyb.full_chunks(mode), 7)):
+                n_bad, worst = diff(g, ref)
+                check(n_bad == 0, f"P4 {mode} S={n_emit} chunks={c}: "
+                      f"{n_bad} elements differ from the plain version")
             if n_emit == pyb.S:
                 rows["probe_ybounds"]["plain_ms"] += ms
     log(f"P2 on 3 inputs, P3 and P2 on the control input (at 1 and "
         f"{pv.OCCUPANCY_COPIES} copies, all or one written), P4's "
-        f"{len(pyb.MODES)} modes at S={pyb.CHECK_S} and {pyb.S}: equal to "
+        f"{len(pyb.MODES)} modes at S={pyb.CHECK_S} and {pyb.S} in 1, "
+        f"{pyb.full_chunks('union')} (full card) and 7 chunks: equal to "
         f"their plain versions  [{card}]")
 
     # ---- the probes' own path ---------------------------------------
@@ -1934,6 +1958,8 @@ def probes_cell(s: Smoke) -> dict:
     turns = exact_turns(pv, dev)
     price = exact_price(pv, dev, pv.OCCUPANCY_COPIES)
     log_exact(turns, price, pv.p1_field_ns(p1, dev), card)
+    variants = field_variants(pv, dev, card)
+    p4_serial = pyb.measure(dev, card=card, chunks=1, log=log)
     p4 = pyb.measure(dev, card=card, log=log)
     for k, fn in counted.items():
         rows[k]["launches"] = fn.launches
@@ -1989,12 +2015,114 @@ def probes_cell(s: Smoke) -> dict:
               for mode in pyb.MODES]
     rows["probe_ybounds"].update(
         ms=sum(r["ms"] for r in p4.values()),
+        serial_ms=sum(r["ms"] for r in p4_serial.values()),
+        chunks={m: r["chunks"] for m, r in p4.items()},
         bound_ms=sum(b for b, _ in bounds),
         bound_by=max(bounds)[1])
+    rows["probe_visit"]["w_variants"] = variants
     for k, r in rows.items():
         log(f"{k}: {json.dumps(r)}  [{card}]")
     check_native_decoder(card)
     return rows
+
+
+def launch_ns(call, n: int, warm: int) -> float:
+    """ns an iteration of call(n): one launch timed with CUDA events after
+    a warm call(warm)."""
+    import torch
+
+    call(warm)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    call(n)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e6 / n
+
+
+def field_variants(pv, dev, card: str, n: int = 10000) -> dict:
+    """What paces a field product on the tensor cores (PERF.md §7): each
+    W_FROM_SMEM construct at the occupancy shape, w's fragments held in
+    registers across the 13 products against read from shared memory
+    for every product, in turns (registers, shared, shared, registers),
+    one launch of n iterations each after a warm one at CHECK_N; ns a
+    field product ((8, 128) x (128, 128), all its passes) an SM, beside
+    the TF32 FMA bound.  Returns name -> numbers."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(pv._smi("clocks.max.sm"))
+    inputs = pv.device_inputs(dev)
+    res = {}
+    for name in pv.W_FROM_SMEM:
+        x, t, arg = inputs[name]
+        blocks, threads = pv.configs(dev, name)["K1 occupancy"]
+        products = pv.copies_of(name, blocks, threads) * pv.FIELDS
+        ns = {False: [], True: []}
+        for smem in (False, True, True, False):
+            ns[smem].append(launch_ns(
+                lambda n_: pv.construct(name, x, t, n_, arg, blocks, threads,
+                                        w_from_smem=smem),
+                n, pv.CHECK_N) * sms / products)
+        passes = 1 if name in pv.TF32_ONE_PASS else 3
+        fma = pv.field_bounds_ns(passes, 1, sms, mhz)["fma"]
+        r = {"registers_ns": sum(ns[False]) / 2,
+             "shared_ns": sum(ns[True]) / 2, "fma_ns": fma,
+             "turns_ns": [ns[False][0], ns[True][0], ns[True][1],
+                          ns[False][1]]}
+        res[name] = r
+        log(f"P1 {name} at K1 occupancy, ns a field product an SM (turns "
+            f"registers / shared / shared / registers, N={n}): "
+            f"{' / '.join(f'{v:.2f}' for v in r['turns_ns'])}; w in "
+            f"registers {r['registers_ns']:.2f} "
+            f"({r['registers_ns'] / fma:.2f}x the TF32 FMA bound "
+            f"{fma:.2f} at {mhz:.0f} MHz), w from shared memory "
+            f"{r['shared_ns']:.2f} ({r['shared_ns'] / fma:.2f}x)  [{card}]")
+    return res
+
+
+# iterations a P1 tensor-core construct is timed over in --ab-exact (the
+# parent's take ~87 us an iteration)
+AB_P1_N = 10000
+
+
+def p1_mma_times(pv, dev, n: int = AB_P1_N) -> dict:
+    """P1's tensor-core constructs at both launch shapes through any
+    checkout's ops/probe_visit (its `configs(dev, name)` where it takes a
+    name): after a warm launch at CHECK_N, one launch of n iterations
+    timed with CUDA events.  Returns name -> shape -> ns an iteration."""
+    import inspect
+
+    per_name = "name" in inspect.signature(pv.configs).parameters
+    inputs = pv.device_inputs(dev)
+    res = {}
+    for name in sorted(pv.MMA, key=pv.CONSTRUCTS.index):
+        x, t, arg = inputs[name]
+        shapes = pv.configs(dev, name) if per_name else pv.configs(dev)
+        res[name] = {
+            cfg: launch_ns(lambda n_: pv.construct(name, x, t, n_, arg, *sh),
+                           n, pv.CHECK_N)
+            for cfg, sh in shapes.items()}
+    return res
+
+
+def p4_times(pyb, dev, reps: int = 8) -> dict:
+    """P4's modes at S = 4096 through any checkout's ops/probe_ybounds:
+    serial (chunks = 1; a checkout without chunks has only its 32-block
+    walk) and at the full-card chunking, each the mean of `reps` calls
+    after a warm one.  Returns mode -> shape -> us an emission."""
+    import inspect
+
+    import torch
+
+    chunked = "chunks" in inspect.signature(pyb.ybounds).parameters
+    lo, hi = (torch.from_numpy(v).to(dev) for v in pyb.ybounds_inputs())
+    shapes = {"serial": (1,), "full card": (None,)} if chunked else {
+        "serial": ()}
+    return {mode: {cfg: event_ms(lambda: pyb.ybounds(lo, hi, mode, *c), reps)
+                   * 1e3 / lo.shape[0] for cfg, c in shapes.items()}
+            for mode in pyb.MODES}
 
 
 def exact_turns(pv, dev, reps: int = 20) -> dict:
@@ -2231,34 +2359,39 @@ def compare_trees(roots: list[str], rounds: int = 2) -> int:
 
 
 def time_exact(root: str) -> int:
-    """--time-exact ROOT: P2 and P3 through the ops/probe_visit of the
-    checkout ROOT (this tree or another commit's), timed by this
-    script's exact_turns (and exact_price where that checkout's
-    wrappers take copies); prints one JSON line."""
+    """--time-exact ROOT: P1's tensor-core constructs, P2, P3 and P4
+    through the ops/probe_visit and ops/probe_ybounds of the checkout
+    ROOT (this tree or another commit's), timed by this script's
+    p1_mma_times, exact_turns (and exact_price where that checkout's
+    wrappers take copies) and p4_times; prints one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
     import doomtpu_torch
     from doomtpu_torch.ops import build
     from doomtpu_torch.ops import probe_visit as pv
+    from doomtpu_torch.ops import probe_ybounds as pyb
 
     check(torch.cuda.is_available(), "no CUDA device")
     check(os.path.dirname(os.path.dirname(doomtpu_torch.__file__))
           == os.path.abspath(root), f"doomtpu_torch not imported from {root}")
-    build.build_libraries("probe_visit")
+    build.build_libraries(*PROBE_LIBS)
     dev = torch.device("cuda", 0)
-    got = {"root": root, "turns": exact_turns(pv, dev)}
+    got = {"root": root, "p1": p1_mma_times(pv, dev),
+           "turns": exact_turns(pv, dev)}
     if hasattr(pv, "OCCUPANCY_COPIES"):
         got["price"] = exact_price(pv, dev, pv.OCCUPANCY_COPIES)
+    got["p4"] = p4_times(pyb, dev)
     print(json.dumps(got), flush=True)
     return 0
 
 
 def compare_exact(roots: list[str], rounds: int = 2) -> int:
-    """--ab-exact ROOT ...: P2 and P3 timed through several checkouts on
-    one card, in the order A B ... B A per round, each timing in a
-    process of its own (--time-exact); prints every timing, then per
-    tree and number the mean, min and max."""
+    """--ab-exact ROOT ...: P1's tensor-core constructs, P2, P3 and P4
+    timed through several checkouts on one card, in the order A B ... B
+    A per round, each timing in a process of its own (--time-exact);
+    prints every timing, then per tree and number the mean, min and
+    max."""
     check(len(roots) >= 2, "--ab-exact takes two or more checkout roots")
     card = card_line()
     log(card)
@@ -2286,6 +2419,16 @@ def compare_exact(roots: list[str], rounds: int = 2) -> int:
                 f"{k} mean {sum(v) / len(v):.6g} min {min(v):.6g} max "
                 f"{max(v):.6g}" for k, v in vals.items())
                 + f" over {len(rs)} processes  [{card}]")
+        for key, unit in (("p1", f"ns an iteration, N={AB_P1_N}"),
+                          ("p4", "us an emission, S=4096")):
+            for name, shapes in rs[0][key].items():
+                log(f"{'P1' if key == 'p1' else 'P4'} {name} under {root}, "
+                    f"{unit}: " + ", ".join(
+                        f"{cfg} mean {sum(v) / len(v):.6g} min {min(v):.6g} "
+                        f"max {max(v):.6g}"
+                        for cfg in shapes
+                        for v in [[r[key][name][cfg] for r in rs]])
+                    + f" over {len(rs)} processes  [{card}]")
     return 0
 
 
@@ -2479,7 +2622,8 @@ def main() -> int:
         *[dict(row(name, f"doomtpu_torch/ops/csrc/{src}.cu", replaces,
                    r_probes[name], r_probes[name]["max_abs_err"]),
                library_ms=r_probes[name].get("library_ms"),
-               **{k: r_probes[name][k] for k in ("iterations", "occupancy")
+               **{k: r_probes[name][k]
+                  for k in ("iterations", "occupancy", "serial_ms")
                   if k in r_probes[name]})
           for name, src, replaces in (
               ("probe_visit", "probe_visit",

@@ -108,8 +108,8 @@ _SIGNATURES = {
     },
     "probe_visit": {
         "probe_visit": (
-            [_I, _I, _I, _P, _P, _I, _I, _P, _P],  # construct blocks threads
-            #                                         x t n arg out stream
+            [_I, _I, _I, _P, _P, _I, _I, _I, _P, _P],  # construct blocks
+            #                           threads x t n arg variant out stream
             _I,
         ),
         "probe_exact": ([_I, _P, _P, _P, _I, _I, _P], _I),  # passes w s
@@ -118,8 +118,9 @@ _SIGNATURES = {
         "probe_visit_error_string": ([_I], _C.c_char_p),
     },
     "probe_ybounds": {
-        "probe_ybounds": ([_I, _P, _P, _I, _P, _P], _I),  # mode lo hi S out
-        #                                                   stream
+        "probe_ybounds": ([_I, _P, _P, _I, _I, _P, _P], _I),  # mode lo hi S
+        #                                                 chunks out stream
+        "probe_ybounds_full_chunks": ([_I, _P], _I),    # mode, *chunks
         "probe_ybounds_names": ([], _C.c_char_p),
         "probe_ybounds_error_string": ([_I], _C.c_char_p),
     },

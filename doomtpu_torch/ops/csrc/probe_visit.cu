@@ -13,10 +13,11 @@
 // kernel's output element for element, and every further 1024 threads a
 // copy of it (K1's occupancy, 132 x 4 blocks of 256 threads: the price
 // while every SM holds 32 warps, as under K1).  The tensor-core
-// constructs give a warp an n-tile instead: output columns 8j..8j+7 of
-// rows 0-7 (mma.sync's fragment), two elements a thread, a copy per 512
-// threads.  Each construct is the one that plays the TPU construct's part
-// on Hopper:
+// constructs (mma_kernel<C, STAGED, V>) give a warp a 32-lane group of
+// all 8 rows instead, a copy per 128 threads; their two launch shapes
+// hold 2 copies an SM, the yardstick of their bound: one block of 256
+// threads, and one such block on every SM.  Each construct is the one
+// that plays the TPU construct's part on Hopper:
 //
 //   math          32 chained (a*3)^(a>>1) in registers
 //   branch(_f)    a warp-uniform `if` (a __any_sync vote) that fires every
@@ -48,26 +49,40 @@
 // broadcast through the matrix unit costs inside a per-column loop, and
 // whether its result is exact.  That is one warp's product at a time, in
 // registers, inside a thread's loop; wgmma is a 64-row warpgroup tile fed
-// from shared memory, for large products, and has no place in such a
-// loop.  mma.sync takes the A rows 0-7 (rows 8-15 are zero padding) and an
-// 8-column n-tile; a (8, K) x (K, 128) product is K/8 chained k-steps a
-// tile.  At 64 registers a thread (32 warps an SM) neither operand can
-// stay in registers across the 13 products of a step, so the product and
-// k-step loops stay rolled and each k-step loads its two A and two B
-// words (L1 hits but for the 13 distinct selectors, 832 KB, from L2).
-// `HIGHEST` splits A into three TF32 pieces (hi, mid, lo) with one
-// accumulator each, added with IEEE f32 adds at the end: each piece's
-// one-hot product is exact, and so is (lo + mid) + hi, so the result is
-// the f32 product on any input.  Whether one shared accumulator keeps the
-// sum exact is P3's question, not P1's.
+// from shared memory, for large products.  Each (8, K) x (K, 128) field
+// product runs transposed, out^T = S^T w^T (exact_kernel's form): the
+// selector is A, its 16-lane m-tiles fill M, w's 8 rows fill N = 8, so
+// no row is padding, and a warp's two m-tiles share w's fragments.  A
+// thread's (b0, b1) of two k-steps are 4 adjacent words of w (`kidx`).
+// Each window is loaded and split into its TF32 pieces once an
+// iteration, into registers, and serves all 13 products.  The identity
+// of mxubcast / mxubcast13 (64 KB; a warp's 32 lanes of it, 128
+// registers a thread) stays in registers for the block's life.  The 13
+// distinct selectors (832 KB at K = 128, 312 KB at K = 48) fit no SM's
+// registers or shared memory, so the occupancy shape gives each block
+// one 32-lane group of 8 copies and stages that group's fragments of
+// all 13 selectors in shared memory once, 16 bytes a lane a fragment
+// (a warp's read of one fragment is 512 contiguous bytes, no bank
+// conflict).  8 warps an SM at up to 255 registers a thread; the field
+// loop runs two fields side by side (4 or 12 independent mma.sync a
+// k-step), and the k-steps are unrolled.  `HIGHEST` splits w into three
+// TF32 pieces (hi, mid, lo) with one accumulator each, added with IEEE
+// f32 adds at the end: each piece's one-hot product is exact, and so is
+// (lo + mid) + hi, so the result is the f32 product on any input.
+// Whether one shared accumulator keeps the sum exact is P3's question,
+// not P1's.
 //
 // What bounds it on the card: the operations each construct needs
 // (ops/probe_visit.py::NEEDS: its own loads, arithmetic, shuffles and
 // branches, and for the mma constructs their useful TF32 FMAs at 1024 a
 // clock an SM) over issue and each pipe's rate, except where latency
-// rules: gather_l2 (L2), the divide chain, the mma constructs' rolled
-// operand loads.  The loop's SASS counted by class is a diagnostic
-// beside it (ops/probe_visit.py::construct_sass).
+// rules: gather_l2 (L2), the divide chain.  A staged selector fragment is
+// 512 bytes of shared memory, 4 clocks at 128 bytes a clock, for one
+// mma.sync (P = 1: mxu13diff) or three (P = 3), so mxu13diff is paced by
+// its selector's reads at ~4x its bound and the three-piece constructs
+// at ~1.3x; the identity constructs read no operand from memory in the
+// loop.  The loop's SASS counted by class is a diagnostic beside it
+// (ops/probe_visit.py::construct_sass).
 //
 // P2 / P3 (exact_kernel<P>): the 8 (8, 128) x (128, 128) one-hot
 // products of main6 / main7, out[f] = w S[f], TF32 operands from
@@ -168,12 +183,6 @@ __device__ __forceinline__ void mma16(float (&d)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// the same with A's rows 8-15 zero
-__device__ __forceinline__ void mma8(float (&d)[4], uint32_t a0, uint32_t a2,
-                                     uint32_t b0, uint32_t b1) {
-  mma16(d, a0, 0u, a2, 0u, b0, b1);
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -206,108 +215,300 @@ __device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& mid,
   lo = tf32(__fsub_rn(r1, __uint_as_float(mid)));
 }
 
-// A warp's n-tile j (columns 8j..8j+7) of rows 0-7 of W[8, K] (row
-// stride 128) x S[K, 128] from a zero accumulator, S at `sel` words
-// into `S0`, for the thread with A offset `ao0` (row gr, column tq) and
-// B offset `bo0` (row tq, column 8j + gr): its outputs (gr, 8j + 2tq)
-// and (gr, 8j + 2tq + 1).  P = 1: TF32 operands, one pass; P = 3: A in
-// three pieces, an accumulator each, summed in f32.  ADD: A is W + add,
-// rounded once (mxubcast13).  The k-step loop stays rolled: a step's
-// four operand words are all a thread holds (unrolled, the compiler
-// hoists the loads of later steps and spills at 64 registers).
-template <int K, int P, bool ADD>
-__device__ __forceinline__ float2 dot_tile(const float* w, const float* S0,
-                                           int sel, int ao0, int bo0,
-                                           float add) {
-  float d[P][4] = {};
-  ROLLED for (int kk = 0; kk < K / 8; ++kk) {
-    const int ao = ao0 + 8 * kk, bo = bo0 + sel + 8 * kk * LANES;
-    float x0 = __ldg(w + ao);
-    float x2 = __ldg(w + ao + 4);
-    if constexpr (ADD) {
-      x0 = __fadd_rn(x0, add);
-      x2 = __fadd_rn(x2, add);
-    }
-    const uint32_t b0 = tf32(__ldg(S0 + bo));
-    const uint32_t b1 = tf32(__ldg(S0 + bo + 4 * LANES));
-    if constexpr (P == 1) {
-      mma8(d[0], tf32(x0), tf32(x2), b0, b1);
-    } else {
-      uint32_t h0, m0, l0, h2, m2, l2;
-      split3(x0, h0, m0, l0);
-      split3(x2, h2, m2, l2);
-      mma8(d[0], l0, l2, b0, b1);
-      mma8(d[1], m0, m2, b0, b1);
-      mma8(d[2], h0, h2, b0, b1);
-    }
-  }
-  if constexpr (P == 1)
-    return make_float2(d[0][0], d[0][1]);
-  else
-    return make_float2(__fadd_rn(__fadd_rn(d[0][0], d[1][0]), d[2][0]),
-                       __fadd_rn(__fadd_rn(d[0][1], d[1][1]), d[2][1]));
-}
+// ---- P1's tensor-core constructs ------------------------------------------
+// A warp owns one copy's 32-lane group g (lanes 32g..32g+31: two 16-lane
+// m-tiles) of all 8 rows, each field product transposed, out_f^T =
+// S_f^T w^T: the lanes fill m16n8k8's M, w's 8 rows its N, no padding.
+constexpr int MMA_THREADS = 256;         // a block at most: 8 warps
+constexpr int GROUP = 32;                // output lanes a warp
+constexpr int GROUPS = LANES / GROUP;    // warps a copy
+constexpr int MT = GROUP / 16;           // m-tiles a warp
 
 template <int C>
-__device__ void mma_construct(const Args& a) {
-  constexpr int K = (C == MXU48HI || C == MXU13CVT || C == BRANCHY_MXU)
-                        ? 48 : LANES;
-  constexpr int P = (C == MXUBCAST || C == MXUBCAST13 || C == MXU13DIFF)
-                        ? 1 : 3;
-  // selector f: one (128, 128) identity for the broadcasts, else the
-  // f-th (K, 128) block
-  constexpr int SEL_STRIDE = (C == MXUBCAST || C == MXUBCAST13)
-                                 ? 0 : K * LANES;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int wg = g >> 5, lane = threadIdx.x & 31;
-  const int j = wg & 15, gr = lane >> 2, tq = lane & 3;
-  const int ao0 = gr * LANES + tq, bo0 = tq * LANES + 8 * j + gr;
-  const float* x = static_cast<const float*>(a.x);
-  const float* S = static_cast<const float*>(a.t);
-  float facc[2] = {0.f, 0.f};
-  int iacc[2] = {0, 0};
-  ROLLED for (int i = 0; i < a.n; ++i) {
-    const float* w = x + (i & (WINDOWS - 1)) * ROWS * LANES;
-    if constexpr (C == BRANCHY_MXU) {
-      // field 0 decides the branch, which consumes the sum of the rest
-      int v0 = 0, v1 = 0, t0 = 0, t1 = 0;
-      ROLLED for (int f = 0; f < FIELDS; ++f) {
-        const float2 d = dot_tile<K, P, false>(w, S, f * SEL_STRIDE, ao0,
-                                               bo0, 0.f);
-        if (f == 0) {
-          v0 = (int)d.x;
-          v1 = (int)d.y;
+struct Mma {
+  static constexpr int K =
+      (C == MXU48HI || C == MXU13CVT || C == BRANCHY_MXU) ? 48 : LANES;
+  static constexpr int KK = K / 8;       // k-steps a product
+  static constexpr int P =
+      (C == MXUBCAST || C == MXUBCAST13 || C == MXU13DIFF) ? 1 : 3;
+  static constexpr bool EYE = C == MXUBCAST || C == MXUBCAST13;
+  static constexpr bool ADD = C == MXUBCAST13;   // A is w + f, rounded once
+  // a lane group's A fragments of every field, 16 bytes a lane each
+  static constexpr int SLAB = EYE ? 0 : FIELDS * KK * MT * 32;
+};
+static_assert(FIELDS % 2 == 1, "fields run in pairs, then the last alone");
+
+__host__ __device__ constexpr bool has_variant(int c) {
+  return c == MXU13DIFF || c == MXU13HI;
+}
+
+// The k of fragment column q (0-3; column q + 4 is k + 1) in k-step kk:
+// a thread's (b0, b1) of k-steps 2h and 2h + 1 are the 4 adjacent words
+// w[gr][16h + 4tq ..].  Any bijection onto the k-step pair's 16 k serves
+// the product; this one makes w's loads 16 bytes a thread.
+__device__ __forceinline__ int kidx(int kk, int q) {
+  return 16 * (kk >> 1) + 4 * q + 2 * (kk & 1);
+}
+
+// A's fragment (a0, a1, a2, a3) of the m-tile at lanes L..L+15 in k-step
+// kk, A[m][k] = sel[k][L + m] for the (K, 128) selector `sel`, cvt.rna
+__device__ __forceinline__ uint4 a_frag(const float* sel, int L, int kk,
+                                        int lane) {
+  const float* p = sel + kidx(kk, lane & 3) * LANES + L + (lane >> 2);
+  return make_uint4(tf32(__ldg(p)), tf32(__ldg(p + 8)), tf32(__ldg(p + LANES)),
+                    tf32(__ldg(p + LANES + 8)));
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.volatile.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+
+// What a warp keeps across its loop: the identity's fragments (mxubcast,
+// mxubcast13; in registers for the block's life), the window's fragments
+// (V = 0: split once an iteration, in registers across the 13 products),
+// the accumulators, and where the staged operands sit in shared memory.
+template <int C, int V>
+struct MmaWarp {
+  using M = Mma<C>;
+  static constexpr bool BREG = V == 0 && !M::ADD;
+  uint4 eye[M::EYE ? MT : 1][M::EYE ? M::KK : 1];
+  uint32_t b[BREG ? M::P : 1][BREG ? M::KK : 1][2];   // lo, mid, hi
+  float raw[M::ADD ? M::KK : 1][2];
+  float facc[MT][4];
+  int iacc[MT][4], v0[MT][4], t[MT][4];
+  const float* S;
+  int L0, lane;
+  uint32_t slab_at, piece_at;
+};
+
+// Fields f0 .. f0 + NF - 1 of one iteration i, both m-tiles, each from a
+// zero accumulator (P = 3: lo, mid, hi, summed (lo + mid) + hi), added
+// into the element's accumulator in field order.  mxubcast's second
+// field of a pair walks its k-steps in reverse: its two products are the
+// same (one identity, one w), and ptxas merges two identical mma.sync
+// chains into one; in another order they are two chains with the same
+// one-hot sum.  (The other constructs' products differ, and the reverse
+// order costs the L2-streamed mxu13hi a spill at 255 registers.)
+template <int NF, int C, bool STAGED, int V>
+__device__ __forceinline__ void mma_fields(MmaWarp<C, V>& c, int f0) {
+  using M = Mma<C>;
+  constexpr int KK = M::KK, P = M::P;
+  float d[NF][MT][P][4] = {};
+#pragma unroll
+  for (int step = 0; step < KK; ++step) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int kk = C == MXUBCAST && j == 1 ? KK - 1 - step : step;
+      uint32_t bk[P][2];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if constexpr (V == 1) {
+          const uint2 v = lds64(c.piece_at + 8 * ((p * KK + kk) * 32));
+          bk[p][0] = v.x;
+          bk[p][1] = v.y;
+        } else if constexpr (M::ADD) {
+          bk[p][0] = tf32(__fadd_rn(c.raw[kk][0], (float)(f0 + j)));
+          bk[p][1] = tf32(__fadd_rn(c.raw[kk][1], (float)(f0 + j)));
         } else {
-          t0 += (int)d.x;
-          t1 += (int)d.y;
+          bk[p][0] = c.b[p][kk][0];
+          bk[p][1] = c.b[p][kk][1];
         }
       }
-      if (__any_sync(FULL, v0 + i > -1 || v1 + i > -1)) {
-        iacc[0] += t0;
-        iacc[1] += t1;
-      }
-    } else {
-      ROLLED for (int f = 0; f < FIELDS; ++f) {
-        const float2 d = dot_tile<K, P, C == MXUBCAST13>(
-            w, S, f * SEL_STRIDE, ao0, bo0, (float)f);
-        if constexpr (C == MXU13CVT) {
-          iacc[0] += (int)d.x;
-          iacc[1] += (int)d.y;
-        } else {
-          facc[0] = __fadd_rn(facc[0], d.x);
-          facc[1] = __fadd_rn(facc[1], d.y);
-        }
+#pragma unroll
+      for (int h = 0; h < MT; ++h) {
+        uint4 a;
+        if constexpr (M::EYE)
+          a = c.eye[h][kk];
+        else if constexpr (STAGED)
+          a = lds128(c.slab_at + 512 * (((f0 + j) * KK + kk) * MT + h));
+        else
+          a = a_frag(c.S + (f0 + j) * M::K * LANES, c.L0 + 16 * h, kk,
+                     c.lane);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          mma16(d[j][h][p], a.x, a.y, a.z, a.w, bk[p][0], bk[p][1]);
       }
     }
   }
-  int* o = a.out + (wg >> 4) * ROWS * LANES + gr * LANES + 8 * j + 2 * tq;
-  if constexpr (C == MXU13CVT || C == BRANCHY_MXU) {
-    o[0] = iacc[0];
-    o[1] = iacc[1];
-  } else {
-    o[0] = (int)facc[0];
-    o[1] = (int)facc[1];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    const int f = f0 + j;
+#pragma unroll
+    for (int h = 0; h < MT; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = P == 1 ? d[j][h][0][e]
+                               : __fadd_rn(__fadd_rn(d[j][h][0][e],
+                                                     d[j][h][1][e]),
+                                           d[j][h][2][e]);
+        if constexpr (C == BRANCHY_MXU) {
+          // field 0 decides the branch, which consumes the sum of the rest
+          c.v0[h][e] = f == 0 ? (int)s : c.v0[h][e];
+          c.t[h][e] += f == 0 ? 0 : (int)s;
+        } else if constexpr (C == MXU13CVT) {
+          c.iacc[h][e] += (int)s;
+        } else {
+          c.facc[h][e] = __fadd_rn(c.facc[h][e], s);
+        }
+      }
   }
+}
+
+// Construct C n times.  STAGED (the grid a multiple of GROUPS blocks):
+// block b takes lane group b % GROUPS of copies (b / GROUPS) x warps +
+// warp, and stages that group's A fragments of all 13 selectors in
+// shared memory once (FIELDS x K x 32 lanes x 4 bytes: 208 KB at K = 128,
+// 78 KB at K = 48).  Otherwise warp gw of the grid takes lane group
+// gw % GROUPS of copy gw / GROUPS and reads the selectors through L1 /
+// L2 (one block on one SM: all 128 lanes' selectors, 832 / 312 KB, fit
+// no SM's shared memory).  V = 1 (mxu13diff, mxu13hi, staged only): the
+// block stages each window's TF32 pieces in shared memory and every
+// product reads its w fragments there, as exact_kernel does.
+template <int C, bool STAGED, int V>
+__global__ void __launch_bounds__(MMA_THREADS, 1) mma_kernel(const Args a) {
+  using M = Mma<C>;
+  constexpr int KK = M::KK, P = M::P;
+  extern __shared__ __align__(16) uint4 msm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3, wpb = blockDim.x >> 5;
+  int g, copy;
+  if constexpr (STAGED) {
+    g = blockIdx.x % GROUPS;
+    copy = blockIdx.x / GROUPS * wpb + warp;
+  } else {
+    const int gw = blockIdx.x * wpb + warp;
+    g = gw % GROUPS;
+    copy = gw / GROUPS;
+  }
+  const float* x = static_cast<const float*>(a.x);
+  MmaWarp<C, V> c;
+  c.S = static_cast<const float*>(a.t);
+  c.L0 = GROUP * g;
+  c.lane = lane;
+  c.slab_at = smem_addr(msm) + 16 * lane;
+  uint2* piece = reinterpret_cast<uint2*>(msm + M::SLAB);
+  c.piece_at = smem_addr(piece) + 8 * lane;
+#pragma unroll
+  for (int h = 0; h < MT; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      c.facc[h][e] = 0.f;
+      c.iacc[h][e] = 0;
+    }
+  if constexpr (M::EYE) {
+#pragma unroll
+    for (int h = 0; h < MT; ++h)
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+        c.eye[h][kk] = a_frag(c.S, c.L0 + 16 * h, kk, lane);
+  } else if constexpr (STAGED) {
+    for (int u = threadIdx.x; u < M::SLAB; u += blockDim.x) {
+      const int l = u % 32, h = u / 32 % MT, kk = u / (32 * MT) % KK;
+      const int f = u / (32 * MT * KK);
+      msm[u] = a_frag(c.S + f * M::K * LANES, c.L0 + 16 * h, kk, l);
+    }
+    __syncthreads();
+  }
+  ROLLED for (int i = 0; i < a.n; ++i) {
+    const float* w = x + (i & (WINDOWS - 1)) * ROWS * LANES;
+    if constexpr (V == 0) {
+#pragma unroll
+      for (int h = 0; h < KK / 2; ++h) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(
+            w + gr * LANES + 16 * h + 4 * tq));
+        const float v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = 2 * h + e / 2, j = e & 1;
+          if constexpr (M::ADD)
+            c.raw[kk][j] = v[e];
+          else if constexpr (P == 1)
+            c.b[0][kk][j] = tf32(v[e]);
+          else
+            split3(v[e], c.b[2][kk][j], c.b[1][kk][j], c.b[0][kk][j]);
+        }
+      }
+    } else {
+      // this window's pieces, [P][KK][32 lanes] (b0, b1)
+      for (int u = threadIdx.x; u < KK * 32; u += blockDim.x) {
+        const int l = u & 31, kk = u >> 5;
+        const float2 q = __ldg(reinterpret_cast<const float2*>(
+            w + (l >> 2) * LANES + kidx(kk, l & 3)));
+        if constexpr (P == 1) {
+          piece[u] = make_uint2(tf32(q.x), tf32(q.y));
+        } else {
+          uint32_t h0, m0, l0, h1, m1, l1;
+          split3(q.x, h0, m0, l0);
+          split3(q.y, h1, m1, l1);
+          piece[u] = make_uint2(l0, l1);
+          piece[KK * 32 + u] = make_uint2(m0, m1);
+          piece[2 * KK * 32 + u] = make_uint2(h0, h1);
+        }
+      }
+      __syncthreads();
+    }
+    if constexpr (C == BRANCHY_MXU) {
+#pragma unroll
+      for (int h = 0; h < MT; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c.t[h][e] = c.v0[h][e] = 0;
+    }
+    ROLLED for (int f = 0; f < FIELDS - 1; f += 2)
+      mma_fields<2, C, STAGED, V>(c, f);
+    mma_fields<1, C, STAGED, V>(c, FIELDS - 1);
+    if constexpr (C == BRANCHY_MXU) {
+      // the warp's vote over its (8, 32) tile
+      bool live = false;
+#pragma unroll
+      for (int h = 0; h < MT; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) live = live || c.v0[h][e] + i > -1;
+      if (__any_sync(FULL, live)) {
+#pragma unroll
+        for (int h = 0; h < MT; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c.iacc[h][e] += c.t[h][e];
+      }
+    }
+    if constexpr (V == 1) __syncthreads();
+  }
+  // the accumulator's (lane, row) of m-tile h: (gr, 2tq), (gr, 2tq + 1),
+  // (gr + 8, 2tq), (gr + 8, 2tq + 1)
+  int* o = a.out + (size_t)copy * ROWS * LANES + c.L0 + gr;
+  constexpr bool INT = C == MXU13CVT || C == BRANCHY_MXU;
+#pragma unroll
+  for (int h = 0; h < MT; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[(2 * tq + (e & 1)) * LANES + 16 * h + 8 * (e >> 1)] =
+          INT ? c.iacc[h][e] : (int)c.facc[h][e];
+}
+
+// dynamic shared memory of mma_kernel<C, STAGED, V>
+template <int C, bool STAGED, int V>
+constexpr size_t mma_smem() {
+  return (STAGED ? (size_t)Mma<C>::SLAB * 16 : 0)
+         + (V == 1 ? (size_t)Mma<C>::P * Mma<C>::KK * 32 * 8 : 0);
+}
+
+template <int C, bool STAGED, int V>
+cudaError_t launch_mma(int blocks, int threads, const Args& a,
+                       cudaStream_t stream) {
+  constexpr size_t smem = mma_smem<C, STAGED, V>();
+  static_assert(smem <= 232448, "a block's shared memory");
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mma_kernel<C, STAGED, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  mma_kernel<C, STAGED, V><<<blocks, threads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int C>
@@ -421,8 +622,7 @@ __device__ void elem_construct(const Args& a, int* sm) {
 template <int C>
 __global__ void __launch_bounds__(MAX_THREADS, 1) visit_kernel(const Args a) {
   extern __shared__ int sm[];
-  if constexpr (is_mma(C)) mma_construct<C>(a);
-  else elem_construct<C>(a, sm);
+  elem_construct<C>(a, sm);
 }
 
 // P2 / P3's block: EXACT_TILES warps, each one 16-lane m-tile of one
@@ -609,18 +809,31 @@ size_t smem_bytes(int c, int threads) {
 }
 
 template <int C>
-cudaError_t launch(int blocks, int threads, const Args& a,
+cudaError_t launch(int blocks, int threads, const Args& a, int variant,
                    cudaStream_t stream) {
-  visit_kernel<C><<<blocks, threads, smem_bytes(C, threads), stream>>>(a);
-  return cudaGetLastError();
+  if constexpr (is_mma(C)) {
+    const bool staged = blocks % GROUPS == 0;
+    if (variant == 0)
+      return staged ? launch_mma<C, true, 0>(blocks, threads, a, stream)
+                    : launch_mma<C, false, 0>(blocks, threads, a, stream);
+    if constexpr (has_variant(C))
+      if (variant == 1 && staged)
+        return launch_mma<C, true, 1>(blocks, threads, a, stream);
+    return cudaErrorInvalidValue;
+  } else {
+    if (variant != 0) return cudaErrorInvalidValue;
+    visit_kernel<C><<<blocks, threads, smem_bytes(C, threads), stream>>>(a);
+    return cudaGetLastError();
+  }
 }
 
 template <int... Cs>
 cudaError_t dispatch(int c, int blocks, int threads, const Args& a,
-                     cudaStream_t stream,
+                     int variant, cudaStream_t stream,
                      std::integer_sequence<int, Cs...>) {
   cudaError_t e = cudaErrorInvalidValue;
-  ((c == Cs ? (e = launch<Cs>(blocks, threads, a, stream), 0) : 0), ...);
+  ((c == Cs ? (e = launch<Cs>(blocks, threads, a, variant, stream), 0) : 0),
+   ...);
   return e;
 }
 
@@ -630,15 +843,23 @@ extern "C" {
 
 // Construct `construct` (the index of its name in probe_visit_names)
 // n times on blocks x threads threads; out holds one (8, 128) copy per
-// 1024 threads (512 for the mma constructs).
+// 1024 threads (per 128 for the mma constructs, whose blocks hold at
+// most 256 threads; x 16-byte aligned).  variant 1 (mxu13diff, mxu13hi
+// on a grid of a multiple of 4 blocks): w's fragments read from shared
+// memory for every product, not held in registers.
 int probe_visit(int construct, int blocks, int threads, const void* x,
-                const void* t, int n, int arg, int* out, void* stream) {
+                const void* t, int n, int arg, int variant, int* out,
+                void* stream) {
+  const bool mma = construct >= 0 && is_mma(construct);
   if (construct < 0 || construct >= N_CONSTRUCTS || blocks < 1
-      || threads < 32 || threads > MAX_THREADS || threads % 32 != 0
-      || (long long)blocks * threads % (is_mma(construct) ? 512 : 1024))
+      || threads < 32 || threads % 32 != 0
+      || threads > (mma ? MMA_THREADS : MAX_THREADS)
+      || (long long)blocks * threads % (mma ? 32 * GROUPS : 1024)
+      || (mma && (uintptr_t)x % 16))
     return (int)cudaErrorInvalidValue;
   const Args a{x, t, n, arg, out};
-  return (int)dispatch(construct, blocks, threads, a, (cudaStream_t)stream,
+  return (int)dispatch(construct, blocks, threads, a, variant,
+                       (cudaStream_t)stream,
                        std::make_integer_sequence<int, N_CONSTRUCTS>{});
 }
 

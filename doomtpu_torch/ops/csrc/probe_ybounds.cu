@@ -8,11 +8,17 @@
 // The TPU kernel runs S grid steps in order, one emission a step: each
 // adds 1 to 8-row blocks of TB = 8 cameras' [H = 200, 128] counts, within
 // row bounds taken from the emission's [TB, 128] lo / hi rows.  Here a
-// block takes one (camera, 32-column tile), as K1's blocks do: 8 x 4
-// blocks of 256 threads.  A loop over the S emissions inside the block
-// takes the place of the sequential grid; the tile's [200, 32] counts
-// stay in shared memory (25.6 KB) and are written once at the end.  The
-// tiles own disjoint outputs, so no atomics.  Thread t owns row
+// block takes one (camera, 32-column tile), as K1's blocks do, and one
+// chunk of the emissions: a grid of 8 x 4 x chunks blocks of 256
+// threads.  A loop over the chunk's emissions inside the block takes the
+// place of the sequential grid; the tile's [200, 32] partial counts stay
+// in shared memory (25.6 KB), and the chunks' partials are summed by
+// integer atomicAdd into the zeroed output (integer sums do not depend
+// on their order, so the output is the same bit for bit for any chunk
+// count).  chunks = 1 is the serial walk (32 blocks: the latency of a
+// mechanism inside a serial loop like K1's walk); the full-card chunking
+// (`full_chunks`) keeps every SM as many blocks deep as fit, which is
+// the probe's price at the card's throughput.  Thread t owns row
 // 8 * yb + t / 32 of every 8-row block yb at column t % 32, so an 8-row
 // block's 256 words are one a thread and a thread touches only its own
 // words (the band mode: rows [25 g, 25 g + 25) of its column, g = t / 32).
@@ -33,12 +39,16 @@
 //            [lo, hi] painted by R = 8 bands of 25 rows, each band
 //            intersecting them with its own rows (no TPU body)
 //
-// What bounds it on the card: not bytes (each emission's 8 KB of bounds,
-// 33.5 MB at S = 4096, and the 800 KB output: ~10 us at 3.35 TB/s) but
-// the per-emission chain of loads, reductions, one barrier (double-
-// buffered slots) and the row loop's trips.  Row blocks use floor
-// division (an arithmetic shift), as the TPU kernel's `//`.
+// What bounds it on the card: bytes (each emission's 8 KB of bounds,
+// 33.5 MB at S = 4096, and the 800 KB output: ~10 us at 3.35 TB/s); what
+// sets its time is the per-emission chain of loads, reductions, one
+// barrier (double-buffered slots) and the row loop's trips, over S /
+// chunks emissions a block.  The design splits that chain over chunks
+// and leaves each mode's per-emission body, the probe's answer, as it
+// was.  Row blocks use floor division (an arithmetic shift), as the TPU
+// kernel's `//`.
 
+#include <algorithm>
 #include <climits>
 #include <utility>
 
@@ -62,6 +72,8 @@ __device__ __forceinline__ void add_blocks(int* cnt, int b0, int b1, int t) {
   ROLLED for (int yb = b0; yb < b1; ++yb) cnt[yb * THREADS + t] += 1;
 }
 
+// block (cam x TILES + tile, chunk): emissions [chunk x S / chunks,
+// (chunk + 1) x S / chunks), its partial counts added into `out`
 template <int M>
 __global__ void __launch_bounds__(THREADS) ybounds_kernel(const int* lo,
                                                           const int* hi,
@@ -71,9 +83,12 @@ __global__ void __launch_bounds__(THREADS) ybounds_kernel(const int* lo,
   __shared__ int stage[2][2 * LANES];    // percamR, a parity: lo, hi
   const int cam = blockIdx.x / TILES, tile = blockIdx.x % TILES;
   const int t = threadIdx.x, c = t & (TILE - 1), w = t / TILE;
+  const int s0 = (int)((long long)blockIdx.y * S / gridDim.y);
+  const int s1 = (int)((long long)(blockIdx.y + 1) * S / gridDim.y);
+  if (s0 == s1) return;
   for (int k = t; k < H * TILE; k += THREADS) cnt[k] = 0;
   __syncthreads();
-  ROLLED for (int s = 0; s < S; ++s) {
+  ROLLED for (int s = s0; s < s1; ++s) {
     const int* los = lo + (size_t)s * TB * LANES;
     const int* his = hi + (size_t)s * TB * LANES;
     if constexpr (M == EMPTY) {
@@ -131,22 +146,53 @@ __global__ void __launch_bounds__(THREADS) ybounds_kernel(const int* lo,
   }
   __syncthreads();
   for (int k = t; k < H * TILE; k += THREADS)
-    out[((size_t)cam * H + k / TILE) * LANES + tile * TILE + k % TILE] =
-        cnt[k];
+    if (cnt[k] != 0)
+      atomicAdd(out + ((size_t)cam * H + k / TILE) * LANES + tile * TILE
+                    + k % TILE,
+                cnt[k]);
 }
 
 template <int M>
-cudaError_t launch(const int* lo, const int* hi, int S, int* out,
+cudaError_t launch(const int* lo, const int* hi, int S, int chunks, int* out,
                    cudaStream_t stream) {
-  ybounds_kernel<M><<<TB * TILES, THREADS, 0, stream>>>(lo, hi, S, out);
+  ybounds_kernel<M><<<dim3(TB * TILES, chunks), THREADS, 0, stream>>>(
+      lo, hi, S, out);
   return cudaGetLastError();
 }
 
+// chunks that keep every SM as many ybounds_kernel<M> blocks deep as fit
+template <int M>
+cudaError_t full_chunks(int& chunks) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev, sms, per;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, ybounds_kernel<M>, THREADS, 0);
+    if (e != cudaSuccess) return e;
+    cached = std::max(1, (sms * per + TB * TILES - 1) / (TB * TILES));
+  }
+  chunks = cached;
+  return cudaSuccess;
+}
+
 template <int... Ms>
-cudaError_t dispatch(int m, const int* lo, const int* hi, int S, int* out,
-                     cudaStream_t stream, std::integer_sequence<int, Ms...>) {
+cudaError_t dispatch(int m, const int* lo, const int* hi, int S, int chunks,
+                     int* out, cudaStream_t stream,
+                     std::integer_sequence<int, Ms...>) {
   cudaError_t e = cudaErrorInvalidValue;
-  ((m == Ms ? (e = launch<Ms>(lo, hi, S, out, stream), 0) : 0), ...);
+  ((m == Ms ? (e = launch<Ms>(lo, hi, S, chunks, out, stream), 0) : 0), ...);
+  return e;
+}
+
+template <int... Ms>
+cudaError_t dispatch_chunks(int m, int& chunks,
+                            std::integer_sequence<int, Ms...>) {
+  cudaError_t e = cudaErrorInvalidValue;
+  ((m == Ms ? (e = full_chunks<Ms>(chunks), 0) : 0), ...);
   return e;
 }
 
@@ -155,13 +201,21 @@ cudaError_t dispatch(int m, const int* lo, const int* hi, int S, int* out,
 extern "C" {
 
 // mode: the index of its name in probe_ybounds_names; lo, hi
-// [S, 8, 128] i32; out [8, 200, 128] i32 (every element written)
-int probe_ybounds(int mode, const int* lo, const int* hi, int S, int* out,
-                  void* stream) {
-  if (mode < 0 || mode >= N_MODES || S < 0)
+// [S, 8, 128] i32; out [8, 200, 128] i32, zeroed by the caller (the
+// chunks' counts are added into it); 1 <= chunks <= 65535
+int probe_ybounds(int mode, const int* lo, const int* hi, int S, int chunks,
+                  int* out, void* stream) {
+  if (mode < 0 || mode >= N_MODES || S < 0 || chunks < 1 || chunks > 65535)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch(mode, lo, hi, S, out, (cudaStream_t)stream,
+  return (int)dispatch(mode, lo, hi, S, chunks, out, (cudaStream_t)stream,
                        std::make_integer_sequence<int, N_MODES>{});
+}
+
+// the full-card chunk count of mode `mode` into *chunks
+int probe_ybounds_full_chunks(int mode, int* chunks) {
+  if (mode < 0 || mode >= N_MODES) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_chunks(mode, *chunks,
+                              std::make_integer_sequence<int, N_MODES>{});
 }
 
 const char* probe_ybounds_names() { return NAMES; }

@@ -10,11 +10,12 @@ tensors; anything else raises.
 P1: construct `name` repeated `n` times into an (8, 128) accumulator
 (see csrc/probe_visit.cu for each construct's Hopper form).  The output
 is [copies, 8, 128] i32: one copy of the TPU kernel's (8, 128) output
-per 1024 threads of the launch (per 512 for the tensor-core constructs,
-whose warps own 8 x 8 tiles), every copy equal but gather_l2's, whose
-copy c starts its chains at x + 1024 c.  Where a TPU construct
-votes over its whole vector (`.any()`), the Hopper one votes over a warp
-(`__any_sync`): the same output on the TPU probes' inputs.
+per 1024 threads of the launch (per 128 for the tensor-core constructs,
+whose warps own a 32-lane group of all 8 rows, in blocks of at most 256
+threads), every copy equal but gather_l2's, whose copy c starts its
+chains at x + 1024 c.  Where a TPU construct votes over its whole vector
+(`.any()`), the Hopper one votes over a warp (`__any_sync`): the same
+output on the TPU probes' inputs.
 
 P2 / P3: the 8 one-hot products (8, 128) x (128, 128) of `main6` /
 `main7`, as their (64, 128) i32 bit patterns; rows 8f..8f+7 hold field f
@@ -26,10 +27,10 @@ first, the same price without the output's bytes.
 
     python -m doomtpu_torch.ops.probe_visit
 
-prints, on the card, every construct's time per iteration at one block
-of 1024 threads and at K1's occupancy (4 blocks of 256 threads an SM)
-beside its bound, and P2's and P3's exactness, as the JAX script
-prints them (`name ... ns/iter`, `mxuexact f32: exact=... bad=...`).
+prints, on the card, every construct's time per iteration at its two
+launch shapes (`configs`: one block, and K1's occupancy) beside its
+bound, and P2's and P3's exactness, as the JAX script prints them
+(`name ... ns/iter`, `mxuexact f32: exact=... bad=...`).
 """
 
 from __future__ import annotations
@@ -79,17 +80,22 @@ TPU_BODY = {
 }
 MMA = {"mxubcast", "mxubcast13", "mxu13diff", "mxu13hi", "mxu48hi",
        "mxu13cvt", "branchy_mxu"}
+# the tensor-core constructs' blocks: at most 256 threads, a copy per 128
+# (4 warps, one 32-lane group each); at 2 copies an SM, 8 warps
+MMA_THREADS, MMA_COPY_THREADS, MMA_WARPS_PER_SM = 256, 128, 8
+# the constructs with a second form (`construct(..., w_from_smem=True)`):
+# w's fragments read from shared memory for every product
+W_FROM_SMEM = ("mxu13diff", "mxu13hi")
 # single-pass TF32 products (the rest of MMA split A into three pieces)
 TF32_ONE_PASS = {"mxubcast", "mxubcast13", "mxu13diff"}
 # the SASS diagnostic: the share of the iterations whose conditional
 # code runs (fdiv: the divide's slow path, for operands near the
 # exponent range's ends, which these never are), and the trips of each
 # construct's inner loops, outermost first (the tensor-core constructs'
-# rolled product and k-step loops; fori0's loop runs 0 times here)
+# rolled loop over field pairs, the 13th field after it; fori0's loop
+# runs 0 times here)
 TAKEN = {"branch": 0.5, "branch_f": 0.0, "fdiv": 0.0}
-LOOP_TRIPS = {"fori0": (0,), **{
-    m: (FIELDS, (48 if m in ("mxu48hi", "mxu13cvt", "branchy_mxu")
-                 else LANES) // 8) for m in MMA}}
+LOOP_TRIPS = {"fori0": (0,), **{m: (FIELDS // 2,) for m in MMA}}
 
 _W = (1, WINDOWS, ROWS, LANES)
 _SEL128, _SEL13, _SEL48 = (LANES, LANES), (FIELDS * LANES, LANES), (
@@ -160,6 +166,22 @@ def visit_inputs(seed: int = 0) -> dict:
     }
 
 
+def vote_inputs(lane: int = 40) -> tuple[np.ndarray, np.ndarray]:
+    """branchy_mxu's (x, t) on which its vote group shows: field 0's
+    selector picks column 1 of w for `lane` and column 0 for every other
+    lane, and w is -5 but for column 1 of row 0 (3), so field 0's test
+    (v0 + i > -1 at i = 0) holds at (row 0, `lane`) alone; fields 1-12
+    are the probe's selectors.  At n = 1 a warp's vote takes the branch
+    for every element it holds."""
+    x = np.full(_W, -5.0, np.float32)
+    x[0, :, 0, 1] = 3.0
+    t = selectors(48)
+    t[0] = 1.0
+    t[0, lane] = 0.0
+    t[1, lane] = 1.0
+    return x, t
+
+
 def exact_inputs(seed: int = 0) -> dict:
     """P2 / P3's inputs: name -> w (8, 128) f32; `main6`'s `f32`
     (normals x 1e3) and `i24` (integers below 2^24), from
@@ -209,11 +231,13 @@ def _check(name, x, t):
 
 
 def copies_of(name: str, blocks: int, threads: int) -> int:
-    per = 512 if name in MMA else 1024
+    per = MMA_COPY_THREADS if name in MMA else 1024
+    most = MMA_THREADS if name in MMA else 1024
     total = blocks * threads
-    if threads % 32 or not 32 <= threads <= 1024 or total % per:
+    if threads % 32 or not 32 <= threads <= most or total % per:
         raise ValueError(f"probe_visit {name}: {blocks} x {threads} threads "
-                         f"is not a multiple of {per} threads")
+                         f"is not a multiple of {per} threads in blocks of "
+                         f"32 to {most}")
     return total // per
 
 
@@ -238,24 +262,35 @@ def _p(t):
 
 
 def construct(name: str, x, t=None, n: int = N, arg: int = 0,
-              blocks: int = 1, threads: int = 1024) -> torch.Tensor:
+              blocks: int = 1, threads: int = 1024,
+              w_from_smem: bool = False) -> torch.Tensor:
     """Construct `name` n times on blocks x threads threads: [copies, 8,
     128] i32.  CUDA tensors launch csrc/probe_visit.cu; CPU tensors run
-    `construct_reference`."""
+    `construct_reference`.  w_from_smem (W_FROM_SMEM constructs, blocks a
+    multiple of 4): the kernel form that reads w's fragments from shared
+    memory for every product instead of holding them in registers (the
+    same output)."""
     _check(name, x, t)
     copies = copies_of(name, blocks, threads)
     if n < 0:
         raise ValueError("probe_visit: n < 0")
+    if w_from_smem and (name not in W_FROM_SMEM or blocks % 4):
+        raise ValueError(f"probe_visit {name}: w_from_smem needs one of "
+                         f"{W_FROM_SMEM} on a multiple of 4 blocks")
     if x.device.type == "cpu":
         return construct_reference(name, x, t, n, arg, copies)
     if x.device.type != "cuda":
         raise ValueError(f"probe_visit: no kernel for device {x.device}")
+    if name in MMA and x.data_ptr() % 16:
+        raise ValueError(f"probe_visit {name}: x must be 16-byte aligned "
+                         f"(the kernel reads it 16 bytes at a time)")
     lib = _lib()
     out = torch.empty((copies, ROWS, LANES), dtype=I32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _raise(lib, lib.probe_visit(CONSTRUCTS.index(name), blocks, threads,
-                                _p(x), _p(t), n, arg, _p(out),
-                                ctypes.c_void_p(stream)), f"probe {name}")
+                                _p(x), _p(t), n, arg, int(w_from_smem),
+                                _p(out), ctypes.c_void_p(stream)),
+           f"probe {name}")
     construct.launches += 1
     return out
 
@@ -265,10 +300,10 @@ construct.launches = 0
 
 def _warp_any(cond: torch.Tensor, mma: bool) -> torch.Tensor:
     """A warp's vote over an (8, 128) condition: a warp holds 32 lanes of
-    one row (8 x 8 tiles for the tensor-core constructs)."""
+    one row (32 lanes of all 8 rows for the tensor-core constructs)."""
     if mma:
-        v = cond.reshape(ROWS, LANES // 8, 8).any(2).any(0)
-        return v.repeat_interleave(8)[None].expand(ROWS, LANES)
+        v = cond.reshape(ROWS, LANES // 32, 32).any(2).any(0)
+        return v.repeat_interleave(32)[None].expand(ROWS, LANES)
     v = cond.reshape(ROWS, LANES // 32, 32).any(2)
     return v.repeat_interleave(32, 1)
 
@@ -481,11 +516,11 @@ RATES = {"issue": 4.0, "fp32": 4.0, "imad": 2.0, "alu": 2.0, "sfu": 0.5,
 
 
 def _mma_needs(name: str) -> dict:
-    """A tensor-core construct's warp: its 8 x 8 output tile of each of
-    the 13 products, P passes of K/8 k-steps, each 512 useful FMAs (rows
-    8-15 of m16n8k8 are padding, not counted), then the sum of the 13
-    results (f32 adds, or a conversion and an integer add each); the
-    operands' loads and TF32 rounding are not counted."""
+    """A tensor-core construct's needs for one 8 x 8 output tile (32 of
+    them an SM at 2 copies an SM): of each of the 13 products, P passes
+    of K/8 k-steps, each 512 useful FMAs, then the sum of the 13 results
+    (f32 adds, or a conversion and an integer add each); the operands'
+    loads and TF32 rounding are not counted."""
     k = 48 if name in ("mxu48hi", "mxu13cvt", "branchy_mxu") else LANES
     passes = 1 if name in TF32_ONE_PASS else 3
     need = {"tensor": FIELDS * passes * (k // 8) * 512 / 1024}
@@ -641,19 +676,34 @@ def sass_bound(counts: Counter, taken: float = 1.0, trips: tuple = (),
     return clocks[cls] * warps_per_sm, cls
 
 
+def construct_of(fn: str) -> str | None:
+    """The construct whose priced loop the SASS function `fn` (a mangled
+    name) holds: `visit_kernel<C>`, or the occupancy shape's
+    `mma_kernel<C, true, 0>` for a tensor-core construct; else None."""
+    m = re.search(r"(visit|mma)_kernelI((?:L[ib]\d+E)+)E", fn)
+    if m is None:
+        return None
+    args = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(2))]
+    if m.group(1) == "visit" or args[1:] == [1, 0]:
+        return CONSTRUCTS[args[0]]
+    return None
+
+
 def construct_sass(sass_text: str) -> dict[str, tuple[float, str, dict]]:
-    """name -> (clocks an iteration an SM at 32 warps, class, the loop's
-    instruction counts) for every construct of the built library: what
-    the compiler emitted, beside NEEDS's bound (a worse loop counts
-    more, so it is no bound)."""
+    """name -> (clocks an iteration an SM at 2 copies an SM, class, the
+    loop's instruction counts) for every construct of the built library
+    (`visit_kernel<C>`; for the tensor-core constructs the occupancy
+    shape's `mma_kernel<C, true, 0>`, 8 warps an SM): what the compiler
+    emitted, beside NEEDS's bound (a worse loop counts more, so it is no
+    bound)."""
     loops = sass_loops(sass_text)
     got = {}
     for fn, counts in loops.items():
-        m = re.search(r"visit_kernelILi(\d+)E", fn)
-        if m:
-            name = CONSTRUCTS[int(m.group(1))]
-            clocks, cls = sass_bound(counts, TAKEN.get(name, 1.0),
-                                     LOOP_TRIPS.get(name, ()))
+        name = construct_of(fn)
+        if name is not None:
+            clocks, cls = sass_bound(
+                counts, TAKEN.get(name, 1.0), LOOP_TRIPS.get(name, ()),
+                MMA_WARPS_PER_SM if name in MMA else 32)
             got[name] = (clocks, cls, {
                 f"{d}{'c' if c else ''}:{k}": v
                 for (d, c, k), v in sorted(counts.items())})
@@ -674,10 +724,16 @@ def _smi(query: str, units: bool = False) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def configs(dev) -> dict[str, tuple[int, int]]:
-    """The two launch shapes: one block of 1024 threads, and K1's
-    occupancy, 4 blocks of 256 threads on every SM."""
+def configs(dev, name: str | None = None) -> dict[str, tuple[int, int]]:
+    """The two launch shapes of construct `name`, each 2 copies an SM:
+    one block (of 1024 threads; 256 for the tensor-core constructs), and
+    K1's occupancy, 4 blocks of 256 threads on every SM (one block of 256
+    threads on every SM for the tensor-core constructs, whose blocks each
+    take one 32-lane group of 8 copies)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if name in MMA:
+        return {"one block": (1, MMA_THREADS),
+                "K1 occupancy": (sms, MMA_THREADS)}
     return {"one block": (1, 1024), "K1 occupancy": (4 * sms, 256)}
 
 
@@ -717,10 +773,10 @@ def measure(dev, n: int = N, reps: int = 3, card: str = "",
     emitted = construct_sass(sass("probe_visit"))
     mhz = float(_smi("clocks.max.sm"))
     inputs = device_inputs(dev)
-    shapes = configs(dev)
     log(f"P1 per-construct cost: N={n}, after a warm launch at N={CHECK_N} "
         f"one timed launch, then the mean of {reps} if it took under "
-        f"{ONCE_MS:.0f} ms; shapes {shapes}; bound (the operations "
+        f"{ONCE_MS:.0f} ms; shapes {configs(dev)} (the tensor-core "
+        f"constructs {configs(dev, 'mxubcast')}); bound (the operations "
         f"needed) and SASS count at {mhz:.0f} MHz (clocks.max.sm)  "
         f"[{card}]")
     res = {}
@@ -731,6 +787,7 @@ def measure(dev, n: int = N, reps: int = 3, card: str = "",
         r = {"ms": {}, "ns_per_iter": {}, "bound_ns": clocks / mhz * 1e3,
              "bound_by": cls, "sass_ns": sass_clocks / mhz * 1e3,
              "sass_by": sass_cls, "sass": counts}
+        shapes = configs(dev, name)
         for cfg, (blocks, threads) in shapes.items():
             call = lambda: construct(name, x, t, n, arg, blocks, threads)
             construct(name, x, t, CHECK_N, arg, blocks, threads)
@@ -791,9 +848,8 @@ def p1_field_ns(p1: dict, dev) -> dict:
     occupancy (`measure`) over the products an iteration holds (13 a
     copy), times the card's SMs."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks, threads = configs(dev)["K1 occupancy"]
     return {name: p1[name]["ns_per_iter"]["K1 occupancy"] * sms
-            / (copies_of(name, blocks, threads) * FIELDS)
+            / (copies_of(name, *configs(dev, name)["K1 occupancy"]) * FIELDS)
             for name in ("mxubcast", "mxu13hi")}
 
 

@@ -463,18 +463,46 @@ def test_calibrate_on_card_equals_cpu(engines):
 
 @pytest.mark.parametrize("name", pv.CONSTRUCTS)
 def test_probe_construct_equals_plain_version(cuda, name):
-    """P1: each construct at N = 64, on one block of 1024 threads and at
-    K1's occupancy, against its plain version on the card."""
+    """P1: each construct at N = 64, on its two launch shapes (one block,
+    and K1's occupancy: for the tensor-core constructs one block of 256
+    threads on every SM, a 32-lane group of 8 copies each, its selectors
+    staged in shared memory), against its plain version on the card;
+    mxu13diff and mxu13hi also with w's fragments read from shared
+    memory, and on grids that are not 2 copies an SM."""
     x, t, arg = pv.device_inputs(cuda)[name]
-    for blocks, threads in pv.configs(cuda).values():
-        copies = pv.copies_of(name, blocks, threads)
+    shapes = list(pv.configs(cuda, name).values())
+    if name in pv.MMA:
+        shapes += [(4, 128), (3, 256), (2, 64)]
+    if name in pv.W_FROM_SMEM:
+        shapes += [(*shapes[1], True), (4, 128, True)]
+    for shape in shapes:
+        copies = pv.copies_of(name, *shape[:2])
         want = pv.construct_reference(name, x, t, pv.CHECK_N, arg, copies)
         before = pv.construct.launches
-        got = pv.construct(name, x, t, pv.CHECK_N, arg, blocks, threads)
+        got = pv.construct(name, x, t, pv.CHECK_N, arg, *shape)
         torch.cuda.synchronize()
         assert pv.construct.launches == before + 1
         assert got.shape[0] == copies
-        assert torch.equal(got, want), (name, blocks)
+        assert torch.equal(got, want), (name, shape)
+    if name in pv.MMA:
+        with pytest.raises(ValueError):   # blocks of at most 256 threads
+            pv.construct(name, x, t, pv.CHECK_N, arg, 1, 512)
+        with pytest.raises(ValueError):
+            pv.construct(name, x, t, pv.CHECK_N, arg, 3, 256,
+                         w_from_smem=True)
+
+
+def test_probe_branchy_vote_group(cuda):
+    """branchy_mxu's warp votes over its 32-lane group of all 8 rows, as
+    its plain version does: on pv.vote_inputs one element's test takes
+    the branch for lanes 32-63 alone, at both launch shapes."""
+    x, t = (torch.from_numpy(v).to(cuda) for v in pv.vote_inputs(40))
+    for blocks, threads in pv.configs(cuda, "branchy_mxu").values():
+        got = pv.construct("branchy_mxu", x, t, 1, 0, blocks, threads)
+        want = pv.construct_reference("branchy_mxu", x, t, 1, 0,
+                                      got.shape[0])
+        assert torch.equal(got, want), blocks
+        assert (got[:, :, 32:64] != 0).all() and not got[:, :, :32].any()
 
 
 def test_probe_exactness_kernels(cuda):
@@ -518,8 +546,15 @@ def test_probe_exactness_kernels(cuda):
 @pytest.mark.parametrize("s", [pyb.CHECK_S, pyb.S])
 def test_probe_ybounds_equals_plain_version(cuda, s):
     """P4: every mode against its plain version, at 64 emissions and at
-    the probe's 4096."""
+    the probe's 4096, serial (one chunk), at the full-card chunking, in a
+    chunk count that divides neither, and in more chunks than
+    emissions."""
     lo, hi = (torch.from_numpy(v).to(cuda) for v in pyb.ybounds_inputs(s))
     for mode in pyb.MODES:
-        got = pyb.ybounds(lo, hi, mode)
-        assert torch.equal(got, pyb.ybounds_reference(lo, hi, mode)), mode
+        want = pyb.ybounds_reference(lo, hi, mode)
+        for chunks in (1, None, 7, s + 3):
+            before = pyb.ybounds.launches
+            got = pyb.ybounds(lo, hi, mode, chunks)
+            assert pyb.ybounds.launches == before + 1
+            assert torch.equal(got, want), (mode, chunks)
+    assert pyb.full_chunks("union") >= 32

@@ -181,6 +181,26 @@ def test_table_generator_equals_jax(tmp_path):
     assert ns["STATE_NAMES"] == ["S_NULL", "S_SPIN1", "S_SPIN2"]
 
 
+def test_table_generator_on_the_full_data_file(tmp_path):
+    """The port's copy of the multigen data file is the JAX package's,
+    byte for byte, and the port's generator on it gives the committed
+    doomtpu_torch/info/_tables.py and the JAX generator's text."""
+    from pathlib import Path
+
+    from doomtpu.info.gen_tables import generate as jgenerate
+    from doomtpu_torch.info import gen_tables
+
+    root = Path(__file__).resolve().parents[1]
+    data = root / "doomtpu_torch" / "info" / "multigen.txt"
+    assert data.read_bytes() == (
+        root / "doomtpu" / "info" / "multigen.txt").read_bytes()
+    out = tmp_path / "_tables.py"
+    gen_tables.main([str(data), "-o", str(out)])
+    code = out.read_text()
+    assert code == (root / "doomtpu_torch" / "info" / "_tables.py").read_text()
+    assert code == jgenerate(data.read_text())
+
+
 def _picture_lumps(wad):
     """Every picture lump of a WAD: its patches (PNAMES) and sprites."""
     from doomtpu_torch.assets.textures import TextureStore

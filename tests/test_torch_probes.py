@@ -181,8 +181,8 @@ def test_hopper_only_constructs_and_wrapper():
     np.testing.assert_array_equal(_port("branch_div", ins), 1 + N // 2)
     x, t, arg = ins["mxu13hi"]
     tx, tt = torch.from_numpy(x), torch.from_numpy(t)
-    out = pv.construct("mxu13hi", tx, tt, N, arg, blocks=2, threads=512)
-    assert out.shape == (2, 8, 128)
+    out = pv.construct("mxu13hi", tx, tt, N, arg, blocks=2, threads=256)
+    assert out.shape == (4, 8, 128)
     np.testing.assert_array_equal(out[1].numpy(), _port("mxu13hi", ins))
     assert pv.construct("math", torch.ones(8, 128, dtype=torch.int32),
                         n=N, blocks=132 * 4, threads=256).shape == (132, 8, 128)
@@ -193,6 +193,54 @@ def test_hopper_only_constructs_and_wrapper():
         pv.construct("mxu13hi", tx, tt[:128], N)
     with pytest.raises(ValueError):
         pv.construct("math", tx, n=N)
+
+
+@pytest.mark.parametrize("name, clocks", [
+    ("mxubcast", 3328), ("mxubcast13", 3328), ("mxu13diff", 3328),
+    ("mxu13hi", 9984), ("mxu48hi", 3744), ("mxu13cvt", 3744),
+    ("branchy_mxu", 3744)])
+def test_mma_shapes_keep_the_bound(name, clocks, monkeypatch):
+    """The tensor-core constructs' two launch shapes on a 132-SM card hold
+    2 copies an SM, as their earlier 512-thread copies did (1 x 1024 and
+    528 x 256 threads), so their bound (the operations 32 8 x 8 output
+    tiles an SM need) is unchanged: 13 products x P passes x K/8 k-steps
+    x 512 useful FMAs at 1024 a clock, x 32 tiles."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": 132}))
+    shapes = pv.configs("cuda", name)
+    assert shapes == {"one block": (1, 256), "K1 occupancy": (132, 256)}
+    assert [pv.copies_of(name, *s) for s in shapes.values()] == [2, 264]
+    assert pv.needs_bound(name) == (pytest.approx(clocks), "tensor")
+    assert pv.LOOP_TRIPS[name] == (6,)
+    # the element constructs keep theirs
+    assert pv.configs("cuda", "math") == {"one block": (1, 1024),
+                                          "K1 occupancy": (528, 256)}
+    with pytest.raises(ValueError):      # blocks of at most 256 threads
+        pv.copies_of(name, 1, 512)
+    assert pv.copies_of(name, 2, 64) == 1
+
+
+def test_branchy_mxu_votes_over_a_warps_tile():
+    """branchy_mxu's vote group follows its warp, which holds a 32-lane
+    group of all 8 rows: one element's test (row 0, lane 40) takes the
+    branch for lanes 32-63 of every row, nowhere else."""
+    x, t = pv.vote_inputs(40)
+    got = pv.construct_reference("branchy_mxu", torch.from_numpy(x),
+                                 torch.from_numpy(t), 1)[0].numpy()
+    # fields 1-12 pick columns 1-12 of window 0: their sum per row
+    tot = x[0, 0, :, 1:13].astype(np.int32).sum(1)[:, None]
+    want = np.zeros((8, 128), np.int32)
+    want[:, 32:64] = tot
+    assert (tot != 0).all()
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):      # the variant is mxu13diff / hi's
+        pv.construct("branchy_mxu", torch.from_numpy(x), torch.from_numpy(t),
+                     1, 0, 4, 256, w_from_smem=True)
+    with pytest.raises(ValueError):      # and the staged shape's
+        pv.construct("mxu13hi", *(torch.from_numpy(v) for v in
+                                  pv.visit_inputs()["mxu13hi"][:2]),
+                     1, 0, 3, 256, w_from_smem=True)
 
 
 def _tpu_exact(w, s, highest):
@@ -369,6 +417,22 @@ def test_ybounds_equals_tpu_kernel(mode, ybounds_inputs):
     assert want.sum() > 0
 
 
+@pytest.mark.parametrize("chunks", [1, 3, 7, 64, 150])
+def test_ybounds_chunks_sum_to_the_serial_counts(chunks):
+    """P4's emissions split into chunks (3, 7 and 64 divide none of S =
+    100; 150 leaves chunks empty), each chunk's counts summed: every mode
+    equals the unchunked plain version, through the CPU wrapper too."""
+    lo, hi = (torch.from_numpy(v) for v in pyb.ybounds_inputs(100))
+    for mode in pyb.MODES:
+        want = pyb.ybounds_reference(lo, hi, mode)
+        assert want.dtype == torch.int32 and want.sum() > 0
+        assert torch.equal(pyb.ybounds_reference(lo, hi, mode, chunks), want)
+        assert torch.equal(pyb.ybounds(lo, hi, mode, chunks), want)
+    for bad in (0, pyb.MAX_CHUNKS + 1, 2.0):
+        with pytest.raises(ValueError):
+            pyb.ybounds(lo, hi, "union", bad)
+
+
 def test_ybounds_band_and_checks(ybounds_inputs):
     """P4's `band` mode (K1's mechanism, no TPU body) against a loop, on
     the probe's inputs and on ranges past the screen; the wrapper's
@@ -467,3 +531,13 @@ def test_sass_loop_parser():
     assert cls == "issue" and clocks == pytest.approx(19 / 4 * 32)
     with pytest.raises(ValueError):
         pv.sass_bound(c)
+    # which function holds a construct's priced loop: visit_kernel<C>, or
+    # mma_kernel<C, STAGED = true, V = 0> (nvcc 12.8's mangled names)
+    ns = "_ZN47_GLOBAL__N__8a93f11b_14_probe_visit_cu_d707984d"
+    assert pv.construct_of(ns + "12visit_kernelILi8EEEvNS_4ArgsE") == "fori0"
+    assert pv.construct_of(
+        ns + "10mma_kernelILi14ELb1ELi0EEEvNS_4ArgsE") == "mxu13hi"
+    for other in ("10mma_kernelILi14ELb1ELi1EEEvNS_4ArgsE",
+                  "10mma_kernelILi14ELb0ELi0EEEvNS_4ArgsE",
+                  "12exact_kernelILi3EEEvPKfS2_Piii"):
+        assert pv.construct_of(ns + other) is None
