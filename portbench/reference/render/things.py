@@ -1,0 +1,420 @@
+"""Deferred pass: map-object sprites + masked two-sided mid walls.
+
+Counterpart of doomtpu/render/things.py (`pools_from_paint` or
+`pools_from_unified` -> `deferred_pass` with the item kernel) at its
+shipping defaults: dense emission (no block-local path), mid presence
+per selected item and the vectorized mid fill.  `item_pack` builds the
+item-pass kernel's inputs from the same selection (stages 1-2), and
+`item_census` counts what the pool would hold uncapped (calibration).  The
+stages and their arithmetic are the JAX package's:
+
+1. per-item scalars [B, I], I = mobjs + drawable mids: billboard
+   projection and painter keys (renderer/map_objects.rs:37-121);
+2. the nearest max_visible_mobjs items in painter order are selected;
+   the rest count in items_dropped;
+3. presence [B, N, W] per selected item and column; each column's
+   present items fill its item pool [B, KI, W] nearest first, so a full
+   column drops its farthest items (counted in item_overflow);
+4. per-slot sprite column math, and mid slots filled from the mid
+   pool;
+5. the item kernel (ops/items.py) clips sprite slots against the clip
+   pool and folds the pool farthest -> nearest over the paint frame.
+
+The JAX package gathers per-slot values with one-hot MXU contractions
+([B, I, N] for the selection, [B, W, N, KI] for the emission); here the
+same values come from exact index operations: a stable sort for the
+selection, a scatter of item ids into a slot -> item table for the
+emission and a scatter of mid-pool slot ids for the mid fill.  Stages
+1-4 and the item kernel each run once over the whole batch.
+
+The item pool is slot-major, [B, KI, W] per plane, the item kernel's
+layout.  Its planes: word (ct+1 | cb+1 << 16 | marks), atlas column,
+by|ty, off_y|th, light|zdist, uy1 bits, and the sprite's view-space
+position vpx, vpy (bits) for the in-kernel clip.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from portbench.reference.config import PLAYER_EYE_HEIGHT, RenderConfig
+from portbench.reference.ops.items import (
+    ITEM_PLANES, SPR_MARK, composite_items_reference, is_behind_vertex,
+)
+from portbench.reference.ops.layout import KIND_MID, pack16
+from portbench.reference.render import camera as cam
+from portbench.reference.render.device import DeviceLevel
+from portbench.reference.render.jmath import (
+    F32, I32, as_i16, fdiv, reciprocal, rotate, smul, sqrt,
+    stable_positions, wrap_tex,
+)
+
+_PI = np.float32(math.pi)
+_TWO_PI = np.float32(2.0) * _PI
+
+
+def sprite_rotation(player_angle, mobj_angle):
+    """0..7 rotation index (map_objects.rs:53-67), f32 like the
+    reference.  The division by 2 pi is XLA's multiply by the constant's
+    f32 reciprocal (jmath.div_const)."""
+    two_pi = float(_TWO_PI)
+    angle = (player_angle.to(F32) - mobj_angle.to(F32)) - float(_PI)
+    angle = angle + float(_PI / np.float32(16.0))
+    angle = torch.fmod(angle, two_pi)
+    angle = torch.where(angle < 0.0, angle + two_pi, angle)
+    angle = torch.fmod(angle, two_pi)
+    rot = (angle * 8.0) * reciprocal(_TWO_PI)
+    return torch.clamp(torch.trunc(rot), 0, 255).to(I32)
+
+
+def pools_from_unified(pool, cnt, frame: dict):
+    """(clip, mid) pools from the unified span pool of the scan + resolve
+    pipeline (render/walls.wall_scan: (spans, [d1..d6]) as [B, W, K]
+    views), as slot-major [B, K, W] planes.  Both views are the same
+    slots, as in the JAX pools_from_unified: plane records are inert in
+    the clip (no E2B / E2T / DC bit, not KIND_MID) and in the mid pool
+    (not KIND_MID).  The item kernel's clip reads each record's seg
+    endpoints, which the span pool does not carry: they are gathered
+    from the camera-stage frame by the record's seg id d6, as the JAX
+    XLA clip does (slots at or past cnt gather seg 0 and are never
+    read)."""
+    spans, planes = pool
+    sm = lambda p: p.transpose(1, 2)
+    s = sm(spans)
+    d1, d2, d3, d4, d5, d6 = (sm(p) for p in planes)
+    B, K, W = s.shape
+    valid = torch.arange(K, dtype=I32, device=s.device)[None, :, None] \
+        < cnt[:, None, :]
+    seg = torch.where(valid, d6, 0).reshape(B, K * W).long()
+    coord = lambda k: torch.gather(frame[k], 1, seg).reshape(B, K, W).view(I32)
+    clip = {"span": s, "d2": d2, "d6": d6, "cnt": cnt}
+    clip.update({k: coord(k) for k in ("lsx", "lsy", "lex", "ley")})
+    mid = {"span": s, "d1": d1, "d2": d2, "d3": d3, "d4": d4, "d5": d5,
+           "d6": d6, "cnt": cnt}
+    return clip, mid
+
+
+def _sprite_scalars(level: DeviceLevel, cfg: RenderConfig, px, py, angle,
+                    floor_height, sector_light, mobj_state):
+    """Per-mobj billboard scalars [B, MO] (map_objects.rs:37-121)."""
+    MO = level.num_mobjs
+    state = mobj_state.long()
+    alive = mobj_state != 0                                   # S_NULL
+    sprite_ix = level.state_sprite[state].long()
+    frame_n = level.state_frame[state]
+    bright = level.state_full_bright[state]
+    rot = sprite_rotation(angle[:, None], level.mobj_angle[None])
+    max_frame = level.spr_table.shape[1]
+    frame_ok = frame_n < max_frame
+    pic = level.spr_table[
+        sprite_ix, torch.clamp(frame_n, max=max_frame - 1).long(), rot.long()
+    ]
+    valid = alive & frame_ok & (pic >= 0) & (level.mobj_sector[None] >= 0)
+    pic_s = torch.clamp(pic, min=0)
+    ps = pic_s.long()
+
+    mx = level.mobj_pos[None, :, 0] - px[:, None]
+    my = level.mobj_pos[None, :, 1] - py[:, None]
+    vpx, vpy = rotate(mx, my, -angle[:, None])
+    w_pic = level.spr_w[ps]
+    half = w_pic.to(F32) * 0.5
+    ok, lsx, lsy, lex, ley, start_off = cam.clip_to_viewport(
+        vpx, vpy + half, vpx, vpy - half
+    )
+    valid = valid & ok
+
+    sec = torch.clamp(level.mobj_sector, min=0).long()
+    light_m = torch.where(bright, 255, sector_light[:, sec])
+    ph = floor_height.to(F32)[:, None] + float(np.float32(PLAYER_EYE_HEIGHT))
+    z_f = level.sector_floor_h[sec].to(F32)[None]
+    pic_h = level.spr_h[ps].to(F32)
+    top_off = level.spr_top[ps].to(F32)
+    bottom_h = z_f - ph
+    top_h = ((z_f + pic_h) - 1.0) - ph
+    off_adj = top_off - pic_h
+    bottom_h = bottom_h + off_adj
+    top_h = top_h + off_adj
+
+    bsx = cam.project_x(cfg, lsx, lsy)
+    bex = cam.project_x(cfg, lex, ley)
+    yb_s = cam.project_y(cfg, lsx, bottom_h)
+    yb_e = cam.project_y(cfg, lex, bottom_h)
+    yt_s = cam.project_y(cfg, lsx, top_h)
+    yt_e = cam.project_y(cfg, lex, top_h)
+    denom_x = (bsx - bex).to(F32)
+    yb_d = fdiv((yb_s - yb_e).to(F32), denom_x)
+    yt_d = fdiv((yt_s - yt_e).to(F32), denom_x)
+
+    # back-to-front painter position: MO-1 minus the ascending stable
+    # position of as_i16(lsx)
+    j_of_m = (MO - 1) - stable_positions(as_i16(lsx))
+    return dict(
+        valid=valid, pic_s=pic_s, w_pic=w_pic, light_m=light_m,
+        lsx=lsx, lsy=lsy, lex=lex, ley=ley, start_off=start_off,
+        vpx=vpx, vpy=vpy, bsx=bsx, bex=bex,
+        yb_s=yb_s, yb_d=yb_d, yt_s=yt_s, yt_d=yt_d,
+        bottom_h=bottom_h, top_h=top_h, j_of_m=j_of_m,
+    )
+
+
+def _select_items(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
+                  px, py, angle, floor_height, sector_light, mobj_state):
+    """Per-item scalars and the nearest-N painter-order selection.
+
+    Returns None when the level has no items, else a dict with the
+    selected item ids `sel` [B, N] (ascending painter key: slot N-1 is
+    the nearest), `sel_valid`, `is_spr_sel`, `items_dropped` [B], the
+    selected sprites' scalars `spr` (zeros at mid slots) and the selected
+    mids' seg ids `segsel` (zeros at sprite slots)."""
+    B, dev = px.shape[0], px.device
+    G, MO = level.num_segs, level.num_mobjs
+    dsegs = level.dseg_ix.long()
+    D = dsegs.shape[0]
+    I = MO + D
+    if I == 0:
+        return None
+    N = I if cfg.max_visible_mobjs <= 0 else min(cfg.max_visible_mobjs, I)
+
+    if MO > 0:
+        sps = _sprite_scalars(level, cfg, px, py, angle, floor_height,
+                              sector_light, mobj_state)
+        valid, j_of_m = sps["valid"], sps["j_of_m"]
+    else:
+        valid = torch.zeros((B, 0), dtype=torch.bool, device=dev)
+
+    if D > 0:
+        if MO > 0:
+            midx = (sps["lsx"] + sps["lex"]) * 0.5
+            midy = (sps["lsy"] + sps["ley"]) * 0.5
+            fr = lambda k: frame[k][:, dsegs, None]
+            behind_mid = is_behind_vertex(
+                fr("lsx"), fr("lsy"), fr("lex"), fr("ley"),
+                midx[:, None, :], midy[:, None, :],
+            )                                                  # [B, D, MO]
+            # first draw-order position among behind + valid mobjs
+            bv = behind_mid & valid[:, None, :]
+            j_first = torch.where(bv, j_of_m[:, None, :], MO).amin(-1)
+        else:
+            j_first = torch.zeros((B, D), dtype=I32, device=dev)
+        # traversal position of each drawable-mid seg: order inverted by
+        # one unique-index scatter (the JAX SELPOS form, bit-identical to
+        # its one-hot compare-reduce)
+        positions = torch.empty_like(order)
+        positions.scatter_(
+            1, order.long(),
+            torch.arange(G, dtype=I32, device=dev)[None].expand(B, G),
+        )
+        tie_d = (G - 1) - positions[:, dsegs]
+        dseg_valid = frame["valid"][:, dsegs] & frame["active"][:, dsegs, 1]
+    else:
+        j_first = torch.zeros((B, 0), dtype=I32, device=dev)
+        tie_d = torch.zeros((B, 0), dtype=I32, device=dev)
+        dseg_valid = torch.zeros((B, 0), dtype=torch.bool, device=dev)
+
+    TIE = G + 1
+    key_sprite = ((2 * j_of_m + 1) * TIE if MO > 0
+                  else torch.zeros((B, 0), dtype=I32, device=dev))
+    key_seg = (2 * j_first) * TIE + tie_d
+    item_valid = torch.cat([valid, dseg_valid], 1)
+    # invalid items get key -1, so the last N of the ascending stable
+    # order are exactly the nearest N valid items
+    item_key = torch.where(item_valid, torch.cat([key_sprite, key_seg], 1), -1)
+    sel = torch.sort(item_key, dim=1, stable=True).indices[:, I - N:]  # i64
+    n_valid = item_valid.sum(1, dtype=I32)
+    out = {
+        "N": N,
+        "sel": sel.to(I32),
+        "sel_valid": torch.gather(item_valid, 1, sel),
+        "is_spr_sel": sel < MO,
+        "items_dropped": torch.clamp(n_valid - N, min=0),
+    }
+
+    def at_sel(x):
+        """[B, MO] or [B, D] values at the selected items, zeros at the
+        other kind's slots (the JAX fold's zero padding)."""
+        if x.shape[1] == MO:
+            x = torch.cat([x, torch.zeros((B, D), dtype=x.dtype, device=dev)], 1)
+        else:
+            x = torch.cat([torch.zeros((B, MO), dtype=x.dtype, device=dev), x],
+                          1)
+        return torch.gather(x, 1, sel)
+
+    if MO > 0:
+        out["spr"] = {
+            k: at_sel(sps[k]) for k in (
+                "lsx", "lsy", "lex", "ley", "start_off", "pic_s", "w_pic",
+                "light_m", "bsx", "bex", "yb_s", "yb_d", "yt_s", "yt_d",
+                "vpx", "vpy")
+        }
+        out["spr"]["uy1"] = at_sel(sps["top_h"] - sps["bottom_h"])
+        sp = out["spr"]
+        sp["slen"] = sqrt(smul(sp["lsx"] - sp["lex"], sp["lsx"] - sp["lex"])
+                          + smul(sp["lsy"] - sp["ley"], sp["lsy"] - sp["ley"]))
+    if D > 0:
+        out["segsel"] = at_sel(level.dseg_ix[None].expand(B, D))
+    return out
+
+
+def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
+              order, px, py, angle, floor_height, sector_light, mobj_state):
+    """The item kernel's inputs for B cameras, in one pass over the
+    batch: (ipool [ITEM_PLANES, B, KI, W] i32, icnt [B, W] i32, daux);
+    ipool is None when the level has no items.  daux counts
+    items_dropped and item_overflow per camera, and item_peak is each
+    camera's largest uncapped column occupancy (the item_capacity that
+    would drop nothing)."""
+    _, midp = pools
+    B, dev = px.shape[0], px.device
+    daux = {"item_block_dropped": torch.zeros((), dtype=I32, device=dev)}
+    if level.num_mobjs + level.dseg_ix.shape[0] == 0:
+        for k in ("items_dropped", "item_overflow", "item_peak"):
+            daux[k] = torch.zeros((B,), dtype=I32, device=dev)
+        return None, None, daux
+    W, H, KI = cfg.width, cfg.height, cfg.item_capacity
+    G, MO = level.num_segs, level.num_mobjs
+    D = level.dseg_ix.shape[0]
+    s = _select_items(level, cfg, frame, order, px, py, angle, floor_height,
+                      sector_light, mobj_state)
+    N = s["N"]
+    sel_valid, is_spr_sel = s["sel_valid"], s["is_spr_sel"]
+    xcol = torch.arange(W, dtype=I32, device=dev)
+
+    # ---- presence [B, N, W] -------------------------------------------
+    pres = torch.zeros((B, N + 1, W), dtype=torch.bool, device=dev)
+    if MO > 0:
+        sp = s["spr"]
+        x0i, x1i = as_i16(sp["bsx"]), as_i16(sp["bex"])       # x1 exclusive
+        pres[:, :N] = ((xcol >= x0i[..., None]) & (xcol < x1i[..., None])
+                       & is_spr_sel[..., None])
+    m_span, m_d6 = midp["span"], midp["d6"]                  # [B, KM, W]
+    KM = m_span.shape[1]
+    k_iota = torch.arange(KM, dtype=I32, device=dev)[None, :, None]
+    mid_slot = (((m_span >> 29) & 3) == KIND_MID) & (
+        k_iota < midp["cnt"][:, None, :])
+    if D > 0:
+        # seg -> selected mid item; each valid mid-pool entry then marks
+        # its item present in its column (item n present iff some valid
+        # mid-pool slot of the column holds segsel[n])
+        want = ~is_spr_sel & sel_valid
+        seg_to_n = torch.full((B, G + 1), -1, dtype=I32, device=dev)
+        seg_to_n.scatter_(
+            1, torch.where(want, s["segsel"], G).long(),
+            torch.arange(N, dtype=I32, device=dev)[None].expand(B, N),
+        )
+        seg_to_n[:, G] = -1
+        n_e = torch.gather(
+            seg_to_n, 1, torch.where(mid_slot, m_d6, G).reshape(B, -1).long()
+        ).reshape(B, KM, W)                                   # [B, KM, W]
+        pres.scatter_(1, torch.where(n_e >= 0, n_e, N).long(), True)
+    pres = pres[:, :N] & sel_valid[..., None]
+
+    # ---- emission: nearest item first (slot 0) -------------------------
+    rc = torch.flip(torch.cumsum(torch.flip(pres, [1]), 1, dtype=I32), [1])
+    fits = rc <= KI
+    item_overflow = (pres & ~fits).sum((1, 2), dtype=I32)
+    item_peak = rc[:, 0].amax(1)
+    icnt = torch.clamp(rc[:, 0], max=KI)
+    slot_of = torch.where(pres & fits, rc - 1, KI).long()      # [B, N, W]
+    tab = torch.full((B, KI + 1, W), -1, dtype=I32, device=dev)
+    tab.scatter_(1, slot_of,
+                 torch.arange(N, dtype=I32, device=dev)[None, :, None]
+                 .expand(B, N, W))
+    tab = tab[:, :KI]                                         # [B, KI, W]
+    used = tab >= 0
+    n_ix = torch.clamp(tab, min=0).reshape(B, KI * W).long()
+
+    def per_slot(x):
+        """[B, N] per-item values -> [B, KI, W] per pool slot."""
+        return torch.gather(x, 1, n_ix).reshape(B, KI, W)
+
+    zero_s = torch.zeros((B, KI, W), dtype=I32, device=dev)
+    is_spr_slot = per_slot(is_spr_sel) & used
+    planes = [zero_s] * ITEM_PLANES
+
+    # ---- sprite per-slot column math ------------------------------------
+    if MO > 0:
+        one = 1.0
+        f = {
+            "bsx": sp["bsx"], "dxi": sp["bex"] - sp["bsx"],
+            "inv0": fdiv(one, sp["lsx"]), "inv1": fdiv(one, sp["lex"]),
+            "z0": fdiv(0.0, sp["lsx"]), "z1": fdiv(sp["slen"], sp["lex"]),
+            "soffi": as_i16(sp["start_off"]), "wpic": sp["w_pic"],
+            "pic": sp["pic_s"], "th": level.spr_h[sp["pic_s"].long()],
+            "light": sp["light_m"],
+            "ybs": sp["yb_s"].to(F32), "ybd": sp["yb_d"],
+            "yts": sp["yt_s"].to(F32), "ytd": sp["yt_d"],
+            "uy1": sp["uy1"], "vpx": sp["vpx"], "vpy": sp["vpy"],
+        }
+        sc = {k: per_slot(v) for k, v in f.items()}
+        xw = xcol[None, None]                                 # [1, 1, W]
+        ax = fdiv((xw - sc["bsx"]).to(F32), sc["dxi"].to(F32))
+        denom = smul(one - ax, sc["inv0"]) + smul(ax, sc["inv1"])
+        u = fdiv(smul(one - ax, sc["z0"]) + smul(ax, sc["z1"]), denom)
+        s_tx = wrap_tex(as_i16(u) + sc["soffi"],
+                        torch.clamp(sc["wpic"], min=1))
+        s_zd = as_i16(fdiv((one - ax) + ax, denom))
+        xbf = (xw - sc["bsx"]).to(F32)
+        s_by = as_i16(sc["ybs"] + smul(xbf, sc["ybd"]))
+        s_ty = as_i16(sc["yts"] + smul(xbf, sc["ytd"]))
+        # the screen clamp only: the item kernel applies the seg clip.
+        # The upper clamp to H keeps ct+1 inside the word's 9-bit field
+        # (ct == H draws nothing, like any ct > H)
+        s_ct = torch.clamp(torch.clamp(s_ty, min=0), max=H)
+        s_cb = torch.clamp(s_by, max=H - 1)
+        spr_planes = [
+            pack16(s_ct + 1, s_cb + 1) | SPR_MARK,
+            level.col_spr_off + sc["pic"] * level.spr_pw + s_tx,
+            pack16(s_by, s_ty),
+            pack16(zero_s, sc["th"]),
+            pack16(sc["light"], s_zd),
+            sc["uy1"].view(I32), sc["vpx"].view(I32), sc["vpy"].view(I32),
+        ]
+        planes = [torch.where(is_spr_slot, p, 0) for p in spr_planes]
+
+    # ---- mid slots: filled from the mid pool -----------------------------
+    if D > 0:
+        # the pool slot each valid mid-pool entry's item took in its
+        # column; the last (largest k) matching entry wins, as in JAX
+        ok_e = n_e >= 0
+        slot_e = torch.gather(rc, 1, torch.clamp(n_e, min=0).long()) - 1
+        src = torch.full((B, KI + 1, W), -1, dtype=I32, device=dev)
+        src.scatter_reduce_(
+            1, torch.where(ok_e & (slot_e < KI), slot_e, KI).long(),
+            k_iota.expand(B, KM, W), "amax",
+        )
+        src = src[:, :KI]
+        is_mid_slot = used & ~is_spr_slot & (src >= 0)
+        k_ix = torch.clamp(src, min=0).long()
+        take = lambda p: torch.gather(p, 1, k_ix)
+        w_new = pack16((m_span >> 8) & 255, m_span & 255)
+        mid_planes = [w_new] + [midp[k] for k in ("d1", "d2", "d3", "d4", "d5")]
+        for i, p in enumerate(mid_planes):
+            planes[i] = torch.where(is_mid_slot, take(p), planes[i])
+    daux["items_dropped"] = s["items_dropped"]
+    daux["item_overflow"] = item_overflow
+    daux["item_peak"] = item_peak
+    return torch.stack(planes), icnt, daux
+
+
+def deferred_pass(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
+                  order, px, py, angle, floor_height, sector_light,
+                  mobj_state, idx, ld, rgb):
+    """Composite sprites + masked mids over the frame.
+
+    `pools` is the (clip, mid) pair from pools_from_paint or
+    pools_from_unified; idx/ld/rgb [B, H, W] are the shaded frame of
+    walls, planes and sky (ld packed as the paint kernel's) and are
+    updated in place.
+    Returns (idx, ld, rgb, daux), daux counting items_dropped (beyond
+    max_visible_mobjs) and item_overflow (item-pool column overflow)."""
+    ipool, icnt, daux = item_pool(
+        level, cfg, frame, pools, order, px, py, angle, floor_height,
+        sector_light, mobj_state,
+    )
+    if ipool is not None:
+        idx, ld, rgb = composite_items_reference(level, cfg, ipool, icnt, idx, ld, rgb,
+                                       clip=pools[0])
+    return idx, ld, rgb, daux
