@@ -2432,6 +2432,207 @@ def compare_exact(roots: list[str], rounds: int = 2) -> int:
     return 0
 
 
+def sync_census(call) -> dict:
+    """Every synchronizing CUDA call `call()` makes, found by torch.cuda's
+    sync debug mode: {"sites": the port's innermost three frames at each
+    warning (the stack's innermost four where no frame is the port's),
+    "inside": whether a doom.sync range held each (a
+    `census.sync` mark is put in a CPU profile at the warning),
+    "syncs": the doom.sync ranges opened, "nested": those inside
+    another}."""
+    import traceback
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sites = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # the mode's own notice on first use ("...does not yet detect
+        # all synchronizing operations") is no synchronizing call
+        if not str(message).startswith("called a synchronizing"):
+            return
+        with record_function("census.sync"):
+            pass
+        stack = traceback.extract_stack()[:-1]
+        frames = [f for f in stack if "doomtpu_torch" in f.filename
+                  and not f.filename.endswith("trace.py")][-3:] or stack[-4:]
+        sites.append(" < ".join(
+            f"{f.filename.split('doomtpu_torch/')[-1]}:{f.name}:{f.lineno}"
+            for f in frames[::-1]) + f" (warned at {filename}:{lineno})")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        # the profiler's own start and stop synchronize: outside the mode
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ev = [(e.start_ns(), e.end_ns(), e.name())
+          for e in prof.profiler.kineto_results.events()
+          if e.name() in ("doom.sync", "census.sync")]
+    syncs = sorted((a, b) for a, b, n in ev if n == "doom.sync")
+    marks = sorted(a for a, _, n in ev if n == "census.sync")
+    nested = sum(1 for i, (a, b) in enumerate(syncs)
+                 if any(x <= a and b <= y for x, y in syncs[:i]))
+    return {"sites": sites, "syncs": len(syncs), "nested": nested,
+            "inside": [any(a <= m <= b for a, b in syncs) for m in marks]}
+
+
+def trace_report(out_path: str, n: int = 2048, ticks: int = 32) -> int:
+    """The program's spans on the card (doomtpu_torch/trace.py), as the
+    benchmark's cells run the engine: e1m1-scale at 320x200, n spread
+    cameras walking, pools calibrated on the states rendered, on the
+    paint and the scan pipeline.  For each: the sync census of one tick
+    and one render (`sync_census`), every warning inside a doom.sync
+    range; the spans a tick; the cost of a span outside a profiler; and
+    one profiled episode with the program's spans and without them, in
+    turns (on, off, off, on, twice), its frames' checksums equal.  Writes the
+    numbers to `out_path` as JSON."""
+    import types
+    import timeit
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from doomtpu_torch import trace
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.sim import player
+    from doomtpu_torch.wad import synth
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    report = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda,
+              "is_user_annotation": hasattr(torch.autograd._KinetoEvent,
+                                            "is_user_annotation")}
+    log(card, report)
+    # the cost of a span outside a profiler, on this host
+    f = lambda: None
+    g = trace.spanned("doom.x")(f)
+
+    def with_span():
+        with trace.span("doom.x"):
+            pass
+    reps = 200_000
+    cost = {name: timeit.timeit(fn, number=reps) / reps * 1e6
+            for name, fn in (("bare_call_us", f), ("span_us", with_span),
+                             ("spanned_call_us", g))}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        cost["span_profiled_us"] = timeit.timeit(
+            with_span, number=reps // 10) / (reps // 10) * 1e6
+    report["off_path"] = cost
+    log(f"a span outside a profiler: {cost}")
+    moves = torch.tensor([player.KEY_UP, player.KEY_UP | player.KEY_LEFT,
+                          player.KEY_UP | player.KEY_RIGHT,
+                          player.KEY_ALT | player.KEY_LEFT], dtype=torch.int32)
+    ok = True
+    wad = synth.e1m1_scale_wad()
+    for pipeline, cfg in (
+            ("paint", RenderConfig(width=320, height=200,
+                                   use_pallas_paint=True,
+                                   paint_percam_compact=True)),
+            ("scan", RenderConfig(width=320, height=200))):
+        eng = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=dev)
+        pos, ang = spread_poses(eng.tables, n)
+        s0 = eng.new_game(n, pos=pos, angle=ang,
+                          generator=torch.Generator(dev).manual_seed(0))
+        controls = moves.repeat(ticks, -(-n // 4))[:, :n].to(dev)
+        draws = eng.light_draws(n, torch.Generator(dev).manual_seed(1),
+                                ticks=ticks)
+        chain, s = [], s0
+        for t in range(ticks):
+            s = eng.tick(s, controls[t], draws=draws[t])
+            chain.append(s)
+        eng = eng.calibrate(chain)
+        del chain
+        r = {"config": str(eng.config)}
+        one = lambda: eng.tick(s0, controls[0], draws=draws[0])
+        s1 = one()
+        eng.render(s1)
+        for what, call in (("tick", one), ("render", lambda: eng.render(s1))):
+            c = sync_census(call)
+            r[what] = c
+            inside = sum(c["inside"])
+            log(f"{pipeline} {what}: {len(c['sites'])} synchronizing calls, "
+                f"{inside} inside a doom.sync range; doom.sync ranges "
+                f"{c['syncs']} ({c['nested']} nested)")
+            for site in c["sites"]:
+                log(f"  {site}")
+            ok &= inside == len(c["sites"]) and c["nested"] == 0
+        # spans a tick of a rollout, by name, and the episode timed
+        two = lambda: eng.rollout(s0, controls[:2], draws=draws[:2],
+                                  return_frames=True)
+        two()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            two()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.name().startswith("doom."):
+                by[e.name()] = by.get(e.name(), 0) + 1
+        r["spans_2_tick_rollout"] = by
+        log(f"{pipeline}: spans of a 2-tick rollout {by}")
+
+        def episode():
+            st, fr = eng.rollout(s0, controls, draws=draws,
+                                 return_frames=True)
+            sums = fr.sum(dim=(2, 3), dtype=torch.int64)
+            del fr
+            return sums
+
+        plain = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sums0 = episode()
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - t0)
+        r["plain_episode_s"] = plain
+        turns = []
+        enabled = trace._profiler
+        for spans_on in (True, False, False, True) * 2:
+            trace._profiler = (enabled if spans_on else
+                               types.SimpleNamespace(
+                                   _is_profiler_enabled=False))
+            try:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]):
+                    t0 = time.perf_counter()
+                    sums = episode()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                trace._profiler = enabled
+            same = bool(torch.equal(sums, sums0))
+            ok &= same
+            turns.append({"spans": spans_on, "s": wall,
+                          "frames_per_s": n * ticks / wall,
+                          "checksums_equal": same})
+            log(f"{pipeline}: profiled episode, program spans "
+                f"{'on' if spans_on else 'off'}: {wall:.4f} s, "
+                f"{n * ticks / wall:.1f} frames/s, checksums equal {same}")
+        r["profiled_episodes"] = turns
+        log(f"{pipeline}: unprofiled episodes {plain} s")
+        report[pipeline] = r
+        del eng, s0, s1
+        torch.cuda.empty_cache()
+    report["ok"] = ok
+    with open(out_path, "w") as fh:
+        json.dump(report, fh, indent=1)
+    log(json.dumps({"ok": ok, "report": out_path}))
+    return 0 if ok else 1
+
+
 def main() -> int:
     import torch
 
@@ -2651,4 +2852,6 @@ if __name__ == "__main__":
         sys.exit(time_exact(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-exact"]:
         sys.exit(compare_exact(sys.argv[2:]))
+    if sys.argv[1:2] == ["--trace-report"]:
+        sys.exit(trace_report(*sys.argv[2:3]))
     sys.exit(main())

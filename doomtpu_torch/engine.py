@@ -46,6 +46,7 @@ from doomtpu_torch.render.frame import render_frame, render_walls_planes
 from doomtpu_torch.sim import step as step_mod
 from doomtpu_torch.sim.state import GameState, state_from_numpy
 from doomtpu_torch.sim.thinkers import ThinkerTables, draw_lights
+from doomtpu_torch.trace import span
 
 
 class Clock:
@@ -247,7 +248,8 @@ class DoomEngine:
             outs.append(r[1])
             if live_reuse:
                 stale = stale + r[2]
-        frames = torch.cat(outs)
+        with span("doom.frames"):
+            frames = torch.cat(outs)
         if live_reuse:
             return state, frames, stale
         return state, frames

@@ -63,6 +63,7 @@ from doomtpu_torch.render.jmath import (
     rem_trunc, smul, wrap_tex,
 )
 from doomtpu_torch.render.resolve import shade
+from doomtpu_torch.trace import spanned
 
 LD_WRITTEN = 1 << 24
 LD_SKY = 1 << 25
@@ -104,6 +105,7 @@ def _consts(cfg: RenderConfig) -> dict:
 # input build (the host side of the JAX render_paint)
 # ---------------------------------------------------------------------------
 
+@spanned("doom.rows")
 def build_rows(level: DeviceLevel, frame: dict, order):
     """(rows [B, G, NR] i32, scnt [B] i32): one row per (camera, seg),
     the camera's active segs first in traversal order, from a
@@ -245,6 +247,7 @@ def render_paint(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     return out
 
 
+@spanned("doom.rows")
 def kept_set(cfg: RenderConfig, rows, scnt, order) -> torch.Tensor:
     """[B, G, NBW] bool by seg index: the segs live in each 128-column
     block and kept by the cap (`live_lists`, `live_capacity`), per
@@ -256,6 +259,7 @@ def kept_set(cfg: RenderConfig, rows, scnt, order) -> torch.Tensor:
     return torch.zeros_like(kept).scatter_(1, seg, kept)
 
 
+@spanned("doom.rows")
 def reuse_drop(cfg: RenderConfig, rows, scnt, order, kept):
     """(drop [B, G] i32, live_stale i32 scalar) of a tick that reuses an
     earlier tick's `kept_set`: bit w of drop[b, k] where row k of camera
@@ -323,6 +327,7 @@ def live_lists(cfg: RenderConfig, rows, scnt, order):
     return live, rank, live_t.sum(1, dtype=I32)
 
 
+@spanned("doom.rows")
 def live_drop(cfg: RenderConfig, rows, scnt, order):
     """(drop [B, G] i32 or None, live_dropped i32 scalar): the segs
     cfg.paint_live_capacity drops, farthest first: each list of
@@ -490,6 +495,7 @@ def paint_blocks_per_sm(H: int, band_rows: int = BAND_ROWS,
     return load_library(lib).doom_paint_blocks_per_sm(tc, bands, H)
 
 
+@spanned("doom.walls")
 def paint(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
           cami, drop=None) -> dict:
     """Paint B cameras, skipping each row at the 128-column blocks its

@@ -41,6 +41,7 @@ from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, f32, fdiv, smul, wrap_tex,
 )
+from doomtpu_torch.trace import spanned
 
 POOL_PLANES = 1 + N_PLANES     # span, d1..d6
 
@@ -77,6 +78,7 @@ def scan_blocks_per_sm(tc: int = SCAN_COLUMNS, lib: str = "scan") -> int:
     return load_library(lib).doom_scan_blocks_per_sm(tc)
 
 
+@spanned("doom.walls")
 def scan(level: DeviceLevel, cfg: RenderConfig, rows, scnt) -> dict:
     """Scan B cameras.  Returns {"pool": [POOL_PLANES, B, K, W] i32,
     "cnt": [B, W] i32, "overflow": [B] i32}.  CUDA tensors launch the

@@ -17,6 +17,7 @@ from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
     I32, as_i16, as_i32, f32, fdiv, is_left_of, rotate, smul, sqrt,
 )
+from doomtpu_torch.trace import span, spanned
 
 
 # ---------------------------------------------------------------------------
@@ -33,6 +34,7 @@ def node_side_is_left(level: DeviceLevel, px, py):
     )
 
 
+@spanned("doom.camera")
 def traversal_rank(level: DeviceLevel, px, py):
     """Front-to-back rank of each subsector: [B, SS] i32 for BSP depth
     <= 31, else a lexicographic (hi, lo) pair covering depth <= 62.
@@ -61,6 +63,7 @@ def traversal_rank(level: DeviceLevel, px, py):
     return hi, lo
 
 
+@spanned("doom.camera")
 def seg_order(level: DeviceLevel, rank):
     """[B, G] i32 seg indices in front-to-back draw order: a stable
     argsort on the subsector rank, so segs of one subsector keep
@@ -123,8 +126,9 @@ def clip_to_viewport(sx, sy, ex, ey):
     quot_r = dx12 * 1.0 - dy12 * -1.0
     ok_l = torch.abs(quot_l) >= 0.001
     ok_r = torch.abs(quot_r) >= 0.001
-    inv_l = fdiv(1.0, quot_l)
-    inv_r = fdiv(1.0, quot_r)
+    with span("doom.sync"):   # fdiv uploads 1.0: each upload waits
+        inv_l = fdiv(1.0, quot_l)
+        inv_r = fdiv(1.0, quot_r)
     lix = inv_l * (d * -1.0 - dx12 * 0.0)
     liy = inv_l * (d * -1.0 - dy12 * 0.0)
     rix = inv_r * (d * -1.0 - dx12 * 0.0)
@@ -191,6 +195,7 @@ def animated_flat(level: DeviceLevel, flat_id, timestamp):
     return torch.where(n > 1, base + cycle, flat_id)
 
 
+@spanned("doom.camera")
 def build_seg_frame(
     level: DeviceLevel,
     cfg: RenderConfig,

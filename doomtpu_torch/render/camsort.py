@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from doomtpu_torch.render.jmath import F32, I32
+from doomtpu_torch.trace import spanned
 
 
 def camera_sort_key(pos: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
@@ -40,11 +41,13 @@ def camera_sort_key(pos: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return (morton(xr, yr) << 16) | (aq << 13) | morton(xf, yf)
 
 
+@spanned("doom.camera")
 def sort_perm(pos: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """[B] i32 camera permutation: sorted position -> original camera."""
     return torch.argsort(camera_sort_key(pos, angle), stable=True).to(I32)
 
 
+@spanned("doom.camera")
 def sort_state(state, perm: torch.Tensor | None = None):
     """(state with cameras in Morton order, perm)."""
     if perm is None:
@@ -53,6 +56,7 @@ def sort_state(state, perm: torch.Tensor | None = None):
     return state.map(lambda x: x[ix]), perm
 
 
+@spanned("doom.camera")
 def unsort_out(out, perm: torch.Tensor):
     """Undo sort_state on a tuple of [B, ...] outputs."""
     inv = torch.argsort(perm, stable=True)

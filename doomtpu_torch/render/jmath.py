@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from doomtpu_torch.trace import span
+
 F32 = torch.float32
 I32 = torch.int32
 
@@ -131,10 +133,11 @@ def wrap_tex(t, size, pow2: bool = False):
 def cos_sin(angle: torch.Tensor):
     """f32 cos/sin from host numpy (the JAX strict mode's source): one
     [B]-sized host round trip, never the device's own trig."""
-    a = angle.detach().to("cpu", F32).numpy()
-    c = torch.from_numpy(np.cos(a, dtype=np.float32))
-    s = torch.from_numpy(np.sin(a, dtype=np.float32))
-    return c.to(angle.device), s.to(angle.device)
+    with span("doom.sync"):
+        a = angle.detach().to("cpu", F32).numpy()
+        c = torch.from_numpy(np.cos(a, dtype=np.float32))
+        s = torch.from_numpy(np.sin(a, dtype=np.float32))
+        return c.to(angle.device), s.to(angle.device)
 
 
 def rotate(x, y, angle):

@@ -47,6 +47,7 @@ from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, div_const, div_trunc, f32, fdiv, reciprocal, rem_trunc,
     rotate, smul, wrap_tex,
 )
+from doomtpu_torch.trace import span, spanned
 
 
 def unpack16_hi(v):
@@ -66,7 +67,8 @@ def _winners(lo, hi, ok, H: int):
     B, K, W = lo.shape
     dev = lo.device
     length = torch.where(ok, hi - lo + 1, 0).clamp(min=0).reshape(-1)
-    total = int(length.sum())
+    with span("doom.sync"):          # the host reads the list's length
+        total = int(length.sum())
     slot = torch.repeat_interleave(                  # (b, k, w) per pair
         torch.arange(length.numel(), device=dev), length, output_size=total)
     first = torch.cumsum(length, 0) - length
@@ -79,6 +81,7 @@ def _winners(lo, hi, ok, H: int):
     return win.view(B, H, W)
 
 
+@spanned("doom.resolve")
 def resolve_frame(
     level: DeviceLevel,
     cfg: RenderConfig,
@@ -227,13 +230,15 @@ def resolve_frame(
     return idx, light, dist, use_sky
 
 
+@spanned("doom.resolve")
 def shade(level: DeviceLevel, idx, light, dist, is_sky):
     """Palette lookup + light diminish (bitmap_render.rs:190-208) ->
     packed 0xRRGGBB i32 per pixel, 0 where idx < 0.  light / 255 is a
     multiply by f32(1/255), as the jitted JAX shade computes it."""
     factor = f32(light) * reciprocal(255.0) - smul(f32(dist), 1.0 / 4096.0)
-    zero, one = (torch.tensor(v, dtype=F32, device=idx.device)
-                 for v in (0.0, 1.0))
+    with span("doom.sync"):          # each upload waits for the device
+        zero, one = (torch.tensor(v, dtype=F32, device=idx.device)
+                     for v in (0.0, 1.0))
     factor = torch.where(is_sky, one, torch.maximum(factor, zero))
     pal = level.palette_packed[torch.clamp(idx, min=0).long()]
     packed = torch.zeros_like(idx)

@@ -59,6 +59,7 @@ from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, fdiv, reciprocal, rotate, smul, sqrt,
     stable_positions, wrap_tex,
 )
+from doomtpu_torch.trace import span, spanned
 
 _PI = np.float32(math.pi)
 _TWO_PI = np.float32(2.0) * _PI
@@ -295,6 +296,9 @@ def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     if "spr" in s:
         sp = s["spr"]
         one = 1.0
+        with span("doom.sync"):  # fdiv uploads 1.0, 0.0: each waits
+            inv0, inv1 = fdiv(one, sp["lsx"]), fdiv(one, sp["lex"])
+            z0 = fdiv(0.0, sp["lsx"])
         spr_i.update({
             IPI_X0: as_i16(sp["bsx"]),
             IPI_X1E: as_i16(sp["bex"]),          # bex is exclusive already
@@ -306,9 +310,9 @@ def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
         })
         spr_f.update({
             IPF_DX: (sp["bex"] - sp["bsx"]).to(F32),
-            IPF_INV0: fdiv(one, sp["lsx"]),
-            IPF_INV1: fdiv(one, sp["lex"]),
-            IPF_Z0: fdiv(0.0, sp["lsx"]),
+            IPF_INV0: inv0,
+            IPF_INV1: inv1,
+            IPF_Z0: z0,
             IPF_Z1: fdiv(sp["slen"], sp["lex"]),
             IPF_YBS: sp["yb_s"].to(F32), IPF_YBD: sp["yb_d"],
             IPF_YTS: sp["yt_s"].to(F32), IPF_YTD: sp["yt_d"],
@@ -492,10 +496,13 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
     # ---- sprite per-slot column math ------------------------------------
     if MO > 0:
         one = 1.0
+        with span("doom.sync"):  # fdiv uploads 1.0, 0.0: each waits
+            inv0, inv1 = fdiv(one, sp["lsx"]), fdiv(one, sp["lex"])
+            z0 = fdiv(0.0, sp["lsx"])
         f = {
             "bsx": sp["bsx"], "dxi": sp["bex"] - sp["bsx"],
-            "inv0": fdiv(one, sp["lsx"]), "inv1": fdiv(one, sp["lex"]),
-            "z0": fdiv(0.0, sp["lsx"]), "z1": fdiv(sp["slen"], sp["lex"]),
+            "inv0": inv0, "inv1": inv1,
+            "z0": z0, "z1": fdiv(sp["slen"], sp["lex"]),
             "soffi": as_i16(sp["start_off"]), "wpic": sp["w_pic"],
             "pic": sp["pic_s"], "th": level.spr_h[sp["pic_s"].long()],
             "light": sp["light_m"],
@@ -554,6 +561,7 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
     return torch.stack(planes), icnt, daux
 
 
+@spanned("doom.deferred")
 def deferred_pass(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
                   order, px, py, angle, floor_height, sector_light,
                   mobj_state, idx, ld, rgb):

@@ -15,6 +15,7 @@ from doomtpu_torch.config import CLOCK_HZ
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import F32, rotate
 from doomtpu_torch.sim.sector_lookup import sector_at
+from doomtpu_torch.trace import spanned
 
 # control bitmask
 KEY_UP = 1
@@ -27,6 +28,7 @@ KEY_SHIFT = 32   # run (2x)
 _PI = np.float32(np.pi)
 
 
+@spanned("doom.sim.move")
 def move_player(level: DeviceLevel, pos, angle, controls, turbo=1.0):
     """One tick of movement; returns (pos [B, 2], angle [B],
     floor_height [B]), all f32.

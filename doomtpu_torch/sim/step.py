@@ -20,8 +20,10 @@ from doomtpu_torch.sim import player as player_mod
 from doomtpu_torch.sim import thinkers as tk_mod
 from doomtpu_torch.sim.state import GameState
 from doomtpu_torch.sim.thinkers import ThinkerTables
+from doomtpu_torch.trace import span, spanned
 
 
+@spanned("doom.sim.tick")
 def tick(level: DeviceLevel, tkt: ThinkerTables, state: GameState,
          controls, draws, turbo: float = 1.0) -> GameState:
     """One tick: `controls` [B] i32 bitmask (sim/player.py), `draws`
@@ -114,7 +116,8 @@ def rollout(level: DeviceLevel, tkt: ThinkerTables, cfg, state: GameState,
         stale = stale + tick_stale        # 0 on a freshly ordered tick
         outs.append(out)
     if outs:
-        frames = torch.stack(outs)
+        with span("doom.frames"):
+            frames = torch.stack(outs)
     else:
         shape = (0, state.batch) + ((cfg.height, cfg.width)
                                     if return_frames else ())

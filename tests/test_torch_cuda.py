@@ -435,6 +435,36 @@ def test_moving_rollout_on_card_equals_cpu(cuda, pipeline):
         assert stale > 16 * 3
 
 
+@pytest.mark.parametrize("pipeline", ["paint", "scan"])
+def test_every_sync_is_in_a_sync_range(cuda, pipeline):
+    """torch.cuda's sync debug mode over a tick and a render of 64
+    walking cameras on e1m1-scale at 320x200, pools calibrated on the
+    state: every synchronizing call lies inside a doom.sync range, no
+    range inside another, and the ranges number what the CPU tests hold
+    the port to (tests/test_torch_trace.py)."""
+    from chip_smoke import spread_poses, sync_census
+    from doomtpu_torch.sim.player import KEY_LEFT, KEY_UP
+    from test_torch_trace import SYNCS_RENDER, SYNCS_TICK
+
+    cfg = RenderConfig(width=320, height=200,
+                       use_pallas_paint=pipeline == "paint",
+                       paint_percam_compact=True)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=cuda)
+    pos, ang = spread_poses(eng.tables, 64)
+    st = _state(eng, pos, ang)
+    ctl = torch.full((64,), KEY_UP | KEY_LEFT, dtype=torch.int32,
+                     device=cuda)
+    st1 = eng.tick(st, ctl)
+    eng = eng.calibrate([st1])
+    eng.render(st1)
+    for call, syncs in ((lambda: eng.tick(st, ctl), SYNCS_TICK),
+                        (lambda: eng.render(st1), SYNCS_RENDER[pipeline])):
+        c = sync_census(call)
+        assert c["inside"] and all(c["inside"]), (c["inside"], c["sites"])
+        assert (c["syncs"], c["nested"]) == (syncs, 0), c
+
+
 def test_calibrate_on_card_equals_cpu(engines):
     """The census on a CUDA engine (its wall scan launches the wall-scan
     kernel) returns the CPU port's config on demo, B=8, a 3-tick chain of
