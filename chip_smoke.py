@@ -8,8 +8,9 @@ in this checkout (one nvcc per source, all started together) and
 reports each build's resources (registers, spills, shared memory,
 blocks an SM; a spill fails the run).  Then it holds each kernel
 against its plain PyTorch version on the card (the paint kernel also
-under a live-seg cap that drops segs; every kernel at 320x200, 320x768
-and 1024x200; the item kernel also on a WAD whose masked mid is 256
+under a live-seg cap that drops segs; the resolve kernel also under a
+sky with transparent texels; every kernel at 320x200, 320x768 and
+1024x200; the item kernel also on a WAD whose masked mid is 256
 rows tall, rendered against the CPU port), then the Hopper probes P1-P4
 (ops/probe_visit.py, ops/probe_ybounds.py: each probe kernel against
 its plain version, then the probes' own path with its counts set to 0
@@ -35,7 +36,8 @@ fails:
   the uncapped frames;
 - e1m1-scale-masked (GRATE on some solid walls, so the paint kernel
   does not take it): render_walls and render through the wall-scan
-  kernel, the resolve and the shade, then the item kernel;
+  kernel and the resolve kernel (its winner fold, texel fetch and
+  shade; timed alone at B=2048 and 4096), then the item kernel;
 - e1m1-scale with use_item_pass_kernel: render through the paint kernel
   and the item-pass kernel, which draws every selected item (no item
   pool, no item cap);
@@ -142,6 +144,16 @@ def spread_poses(t, n, seed=0):
         np.asarray([(p[0], p[1]) for p in poses], np.float32),
         np.asarray([p[2] for p in poses], np.float32),
     )
+
+
+def sky_masked(level):
+    """The level with transparent texels in its sky texture (every other
+    column of its first 64 rows): the resolve's masked-sky fetch."""
+    TW, R = level.tex_pixels.shape[2], level.atlas_rows
+    atlas = level.atlas_cm.clone()
+    sky = atlas[level.sky_tex * TW * R:(level.sky_tex + 1) * TW * R]
+    sky.view(TW, R)[::2, :64] &= ~0x100
+    return dataclasses.replace(level, atlas_cm=atlas, sky_is_opaque=False)
 
 
 def tall_atlas(level, ipool, rows=256):
@@ -316,16 +328,22 @@ class Smoke:
     """Device, modules and the checks shared by the cells."""
 
     def __init__(self, card, dev):
-        from doomtpu_torch.ops import itempass, items, layout, paint, scan
+        from doomtpu_torch.ops import (
+            itempass, items, layout, paint, resolve, scan,
+        )
+        from doomtpu_torch.render import resolve as res
+        from doomtpu_torch.render import walls
 
         self.card, self.dev = card, dev
         self.checksums = {}                 # timed path -> its rgb checksum
         self.paint, self.items, self.scan = paint, items, scan
         self.itempass = itempass
         self.layout = layout
+        self.resolve, self.res, self.walls = resolve, res, walls
         self.composite = items.composite_items
         self.kernels = {"paint": paint.paint, "items": self.composite,
-                        "scan": scan.scan, "itempass": itempass.item_pass}
+                        "scan": scan.scan, "itempass": itempass.item_pass,
+                        "resolve": resolve.resolve}
 
     def zero_counts(self):
         for fn in self.kernels.values():
@@ -444,6 +462,49 @@ class Smoke:
         check(all(v == 0 for v in diffs.values()),
               f"scan {label}: kernel differs from scan_reference")
         return worst, plain_ms
+
+    def resolve_inputs(self, eng, st, cfg):
+        """(frame, pool, cnt, poses) of the wall scan of a state."""
+        frame, order = self.frame_order(eng, st, cfg)
+        pool, cnt, _ = self.walls.wall_scan(eng.level, cfg, frame, order)
+        return frame, pool, cnt, (st.pos[:, 0], st.pos[:, 1], st.angle,
+                                  st.floor_height)
+
+    def compare_resolve(self, level, cfg, frame, pool, cnt, poses, label):
+        """The resolve kernel against resolve_reference: idx, ld and rgb
+        exactly.  Returns (worst error, plain ms)."""
+        got, ref, plain_ms = against_plain(
+            lambda: self.res.resolve_frame(level, cfg, frame, pool, cnt,
+                                           *poses),
+            lambda: self.res.resolve_reference(level, cfg, frame, pool, cnt,
+                                               *poses))
+        worst, diffs = differing(dict(zip(("idx", "ld", "rgb"),
+                                          zip(got, ref))))
+        written = (got[0] >= 0).float().mean().item()
+        log(f"resolve {label}: differing elements per output "
+            f"{json.dumps(diffs)}; share of pixels written {written:.4f}; "
+            f"sky opaque {level.sky_is_opaque}")
+        check(all(v == 0 for v in diffs.values()),
+              f"resolve {label}: kernel differs from resolve_reference")
+        return worst, plain_ms
+
+    def check_resolve(self, eng, st, cfg, label, level=None):
+        frame, pool, cnt, poses = self.resolve_inputs(eng, st, cfg)
+        return self.compare_resolve(level or eng.level, cfg, frame, pool,
+                                    cnt, poses, label)[0]
+
+    def resolve_bound(self, cfg, cnt, B):
+        """The resolve's bytes, each once: the span word and d1..d5 of
+        every occupied slot, the counts, and idx / ld / rgb written (12
+        bytes a pixel); the level's atlas and palette come from L2.
+        Operations, loosely from above: ~60 a pixel."""
+        used = int(cnt.sum())
+        pixels = B * cfg.height * cfg.width
+        r_bytes = used * 6 * 4 + cnt.numel() * 4 + pixels * 3 * 4
+        ms, by = bound(r_bytes, 60.0 * pixels)
+        log(f"bound resolve B={B}: {r_bytes} bytes ({used} occupied slots, "
+            f"{pixels} pixels) -> {ms:.4f} ms ({by})")
+        return ms, by
 
     def row_bytes(self, rows, scnt, row_words):
         """Bytes of the seg rows a kernel must read: `row_words` words of
@@ -591,7 +652,8 @@ class Smoke:
         import torch
 
         other = "scan" if walls_kernel == "paint" else "paint"
-        no_items = {"items": 0, "itempass": 0}
+        no_items = {"items": 0, "itempass": 0,
+                    "resolve": int(walls_kernel == "scan")}
         sel = torch.linspace(0, B - 1, 16).long().to(self.dev)
         cpu_state = state.map(lambda x: x[sel].cpu())
         runs = [(eng.render, eng.render_counters, cpu_eng.render,
@@ -1081,7 +1143,6 @@ def scan_cell(s: Smoke) -> dict:
     from doomtpu_torch.render import resolve as res
     from doomtpu_torch.render import things, walls
     from doomtpu_torch.render.camsort import sort_state
-    from doomtpu_torch.render.frame import pack_ld
     from doomtpu_torch.wad import synth
 
     phase("e1m1-scale-masked: the scan + resolve pipeline")
@@ -1131,22 +1192,21 @@ def scan_cell(s: Smoke) -> dict:
         lambda: s.scan.scan(lvl, cfg, rows, scnt), 5)
     probe_scan(s, lvl, cfg, rows, scnt, stage["wall-scan kernel"])
     pool, cnt, _ = walls.wall_scan(lvl, cfg, frame, order)
-    resolve = lambda: res.resolve_frame(lvl, cfg, frame, pool, cnt, px, py,
-                                        sp.angle, sp.floor_height)
-    stage["resolve"] = event_ms(resolve, 3)
+    poses = (px, py, sp.angle, sp.floor_height)
+    resolve = lambda: res.resolve_frame(lvl, cfg, frame, pool, cnt, *poses)
+    stage["resolve and shade (kernel)"] = event_ms(resolve, 5)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ridx, light, dist, is_sky = resolve()
+    ridx, ld, rgb0 = resolve()
     torch.cuda.synchronize()
     extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    log(f"resolve temporaries: {extra:.2f} GiB above the "
-        f"{base / 2 ** 30:.2f} GiB held")
-    stage["shade"] = event_ms(
-        lambda: res.shade(lvl, ridx, light, dist, is_sky), 3)
-    rgb0 = res.shade(lvl, ridx, light, dist, is_sky)
-    ld = pack_ld(ridx, light, dist, is_sky)
-    del light, dist, is_sky
+    log(f"resolve: {extra:.2f} GiB above the {base / 2 ** 30:.2f} GiB held "
+        f"(its three frames: {3 * ridx.numel() * 4 / 2 ** 30:.2f} GiB)")
+    err_resolve, resolve_plain_ms = s.compare_resolve(
+        lvl, cfg, frame, pool, cnt, poses,
+        f"e1m1-scale-masked B={B} main-path inputs")
+    resolve_ms = time_resolve(s, lvl, cfg, pool, cnt, poses)
     unified = lambda: things.pools_from_unified(pool, cnt, frame)
     stage["deferred pass (unified pools + item pool)"] = event_ms(
         lambda: s.item_inputs(eng, sp, frame, order, unified(), cfg), 3)
@@ -1169,6 +1229,8 @@ def scan_cell(s: Smoke) -> dict:
         f"e1m1-scale-masked B={B} main-path inputs")
     log(f"scan at B={B}: kernel {stage['wall-scan kernel']:.4f} ms, plain "
         f"PyTorch {scan_plain_ms:.2f} ms (one call)  [{s.card}]")
+    log(f"resolve at B={B}: kernel {resolve_ms[B]:.4f} ms, plain PyTorch "
+        f"{resolve_plain_ms:.2f} ms (one call)  [{s.card}]")
     log(f"items at B={B} masked: kernel {stage['item kernel']:.4f} ms, plain "
         f"PyTorch {items_plain_ms:.2f} ms (one call)  [{s.card}]")
 
@@ -1190,12 +1252,40 @@ def scan_cell(s: Smoke) -> dict:
         f"slots), ~{k_ops:.4g} operations -> {scan_bound:.4f} ms "
         f"({scan_by})")
     s.items_bound(eng, cfg, ipool, icnt, bg, pools[0])
+    resolve_bound, resolve_by = s.resolve_bound(cfg, cnt, B)
     return {
         "scan": {"launches": launches["scan"], "max_abs_err": err_scan,
                  "ms": stage["wall-scan kernel"], "plain_ms": scan_plain_ms,
                  "bound_ms": scan_bound, "bound_by": scan_by},
+        "resolve": {"launches": launches["resolve"],
+                    "max_abs_err": err_resolve, "ms": resolve_ms[B],
+                    "plain_ms": resolve_plain_ms, "bound_ms": resolve_bound,
+                    "bound_by": resolve_by},
         "items_err": err_items,
     }
+
+
+def time_resolve(s: Smoke, lvl, cfg, pool, cnt, poses,
+                 batches=(2048, 4096)) -> dict:
+    """The resolve kernel's mean device ms over 10 calls on the first n
+    cameras of a scan's pool (its per-camera words made once: the trig's
+    host read is no part of it), for each n of `batches`, beside its
+    bound and the blocks an SM holds; {n: ms}."""
+    spans, planes = pool
+    out = {}
+    for n in batches:
+        sub_pool = (spans[:n], [p[:n] for p in planes])
+        sub_cnt = cnt[:n].contiguous()
+        camf, cami = s.resolve.camera_scalars(*(x[:n] for x in poses))
+        ms = event_ms(lambda: s.resolve.resolve(lvl, cfg, sub_pool, sub_cnt,
+                                                camf, cami), 10, spin=True)
+        bound_ms, by = s.resolve_bound(cfg, sub_cnt, n)
+        log(f"resolve kernel B={n} 320x200: {ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({by}, {100 * bound_ms / ms:.1f}%), "
+            f"{s.resolve.resolve_blocks_per_sm(cfg.height)} blocks an SM  "
+            f"[{s.card}]")
+        out[n] = ms
+    return out
 
 
 def livecap_cell(s: Smoke, paint_ms: float) -> None:
@@ -1334,11 +1424,12 @@ def moving_rollout(dev, cfg, live_reuse, n=16, ticks=4, seed=3):
     import torch
 
     from doomtpu_torch.engine import DoomEngine
-    from doomtpu_torch.ops import itempass, items, paint, scan
+    from doomtpu_torch.ops import itempass, items, paint, resolve, scan
     from doomtpu_torch.wad import synth
 
     kernels = {"paint": paint.paint, "items": items.composite_items,
-               "scan": scan.scan, "itempass": itempass.item_pass}
+               "scan": scan.scan, "itempass": itempass.item_pass,
+               "resolve": resolve.resolve}
     wad = synth.e1m1_scale_wad()
     card = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=dev)
     cpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu")
@@ -1418,7 +1509,8 @@ def rollout_cell(s: Smoke) -> None:
         got = s.counts()
         log(f"main path {what} B={B} T={T}: launches {got}; per tick "
             + json.dumps({k: v / T for k, v in got.items()}))
-        check(got == {"paint": T, "items": T, "scan": 0, "itempass": 0},
+        check(got == {"paint": T, "items": T, "scan": 0, "itempass": 0,
+                      "resolve": 0},
               f"{what}: launches {got}, want K1 and K2 once a tick")
         final, sums[reuse] = out[0], out[1]
         check(tuple(sums[reuse].shape) == (T, B)
@@ -1506,7 +1598,7 @@ def rollout_cell(s: Smoke) -> None:
             ("paint, live_reuse", cfg, True, {"paint": 4, "items": 4}),
             ("scan + resolve", dataclasses.replace(
                 cfg, use_pallas_paint=False, span_capacity=96), False,
-             {"scan": 4, "items": 4})):
+             {"scan": 4, "resolve": 4, "items": 4})):
         t0 = time.perf_counter()
         diffs, stale, stale_cpu, got = moving_rollout(s.dev, c, reuse)
         log(f"moving rollout B=16 T=4 {label} vs the CPU port "
@@ -1575,7 +1667,8 @@ def calibration_cell(s: Smoke) -> None:
     log(f"census (engine.calibrate) B={B} x {len(chain)} states: "
         f"{census_s:.3f} s, launches {got}, peak {peak:.2f} GiB  [{s.card}]")
     check(got["scan"] > 0, "the census launched no wall-scan kernel")
-    check(got["paint"] == got["items"] == got["itempass"] == 0,
+    check(got["paint"] == got["items"] == got["itempass"]
+          == got["resolve"] == 0,
           f"the census launched a render kernel: {got}")
 
     scan_cal = dataclasses.replace(
@@ -2241,6 +2334,8 @@ def resource_report(s: Smoke, libs) -> dict:
                      lambda lib: ip.itempass_blocks_per_sm(H, KC, KM,
                                                            lib=lib)),
         "scan": (lambda: 0, lambda lib: sc.scan_blocks_per_sm(lib=lib)),
+        "resolve": (lambda: s.resolve.resolve_smem_bytes(H),
+                    lambda lib: s.resolve.resolve_blocks_per_sm(H)),
     }
     report = {}
     for name in libs:
@@ -2658,7 +2753,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    libs = ("paint", "items", "scan", "itempass", *build.VARIANTS)
+    libs = ("paint", "items", "scan", "itempass", "resolve", *build.VARIANTS)
     t0 = time.perf_counter()
     build.build_libraries(*libs, *PROBE_LIBS)
     for name in (*libs, *PROBE_LIBS):
@@ -2718,9 +2813,23 @@ def main() -> int:
         warnings.simplefilter("ignore", UserWarning)
         masked = DoomEngine.from_wad_bytes(
             synth.e1m1_scale_masked_wad(), "e1m1", config=cfg, device=dev)
+    st_m = s.new_game(masked, 32)
     err["scan"] = max(err["scan"], s.check_scan(
-        masked, s.new_game(masked, 32),
-        dataclasses.replace(cfg, span_capacity=96), "e1m1-scale-masked B=32"))
+        masked, st_m, dataclasses.replace(cfg, span_capacity=96),
+        "e1m1-scale-masked B=32"))
+    # the resolve on the scans of both levels, and under a sky with
+    # transparent texels (the masked-sky fetch)
+    err["resolve"] = max(
+        s.check_resolve(demo, demo_st, RenderConfig(span_capacity=16),
+                        "demo B=8 span_capacity=16"),
+        s.check_resolve(e1, st32, dataclasses.replace(cfg, span_capacity=96),
+                        "e1m1-scale B=32"),
+        s.check_resolve(e1, st32, dataclasses.replace(cfg, span_capacity=96),
+                        "e1m1-scale B=32, a sky with transparent texels",
+                        level=sky_masked(e1.level)),
+        s.check_resolve(masked, st_m,
+                        dataclasses.replace(cfg, span_capacity=96),
+                        "e1m1-scale-masked B=32"))
     # textures wider than 128 and ~48 flats take the kernels' other paths
     d1 = DoomEngine.from_wad_bytes(synth.doom1_scale_wad(), "e1m1",
                                    config=cfg, device=dev)
@@ -2759,6 +2868,9 @@ def main() -> int:
         err["items"] = max(err["items"], s.check_items(
             eng_s, st_s, cfg_s, f"demo {w}x{h} B=8", variants=True))
         err["scan"] = max(err["scan"], s.check_scan(
+            eng_s, st_s, dataclasses.replace(cfg_s, span_capacity=32),
+            f"demo {w}x{h} B=8 span_capacity=32"))
+        err["resolve"] = max(err["resolve"], s.check_resolve(
             eng_s, st_s, dataclasses.replace(cfg_s, span_capacity=32),
             f"demo {w}x{h} B=8 span_capacity=32"))
         err["itempass"] = max(err["itempass"], s.check_itempass(
@@ -2820,6 +2932,9 @@ def main() -> int:
         row("itempass", "doomtpu_torch/ops/csrc/itempass.cu",
             "doomtpu/ops/pallas_itempass.py:57", r_ip["itempass"],
             max(err["itempass"], r_ip["itempass"]["max_abs_err"])),
+        row("resolve", "doomtpu_torch/ops/csrc/resolve.cu",
+            "none (doomtpu/render/resolve.py:85, XLA)", r_scan["resolve"],
+            max(err["resolve"], r_scan["resolve"]["max_abs_err"])),
         *[dict(row(name, f"doomtpu_torch/ops/csrc/{src}.cu", replaces,
                    r_probes[name], r_probes[name]["max_abs_err"]),
                library_ms=r_probes[name].get("library_ms"),

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface (the four kernels include
+Each `csrc/<name>.cu` has a plain C interface (the five kernels include
 the shared `csrc/layout.cuh`; the Hopper probes' `probe_visit.cu` and
 `probe_ybounds.cu` stand alone); a library of `VARIANTS` is a source
 built with extra defines (the paint kernel's cost-probe levels).  At
@@ -105,6 +105,20 @@ _SIGNATURES = {
         "doom_scan_error_string": ([_I], _C.c_char_p),
         "doom_scan_blocks_per_sm": ([_I], _I),
         "doom_row_words": ([], _I),
+    },
+    "resolve": {
+        "doom_resolve": (
+            [_P] * 9                            # span d1..d5 cnt camf cami
+            + [_P, _I, _I, _I, _I, _I, _P]      # atlas n rows TW sky_tex
+            #                                     flat_off, pal
+            + [_I] * 6                          # B W H K pow2 sky_opaque
+            + [_F] * 8                          # focus_x focus_y inv_aspect
+            #                                     wx_c eye inv_w inv_h inv_255
+            + [_P, _P, _P, _P],                 # idx ld rgb stream
+            _I,
+        ),
+        "doom_resolve_error_string": ([_I], _C.c_char_p),
+        "doom_resolve_blocks_per_sm": ([_I], _I),
     },
     "probe_visit": {
         "probe_visit": (

@@ -46,6 +46,12 @@ SPAN_DC = 1 << 28      # mid span's seg draws its ceiling (sky hack)
 SPAN_NODRAW = -(2 ** 31)  # clip-only (texture-less) wall span
 
 
+# the ld word of a frame (the paint and resolve kernels write it, the
+# item kernels read it): light(8) << 16 | z-dist(u16) | written | sky
+LD_WRITTEN = 1 << 24
+LD_SKY = 1 << 25
+
+
 def pack_span(kind, y0, y1):
     y0c = torch.clamp(y0, -1, 254) + 1
     y1c = torch.clamp(y1, -1, 254) + 1

@@ -38,7 +38,6 @@ row, which is one or two cache lines.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import numpy as np
 import torch
@@ -52,21 +51,20 @@ from doomtpu_torch.config import (
     RenderConfig,
 )
 from doomtpu_torch.ops.layout import (
-    KIND_MID, KIND_WALL, NR, P_OFFY, P_TEX, P_TH, P_TW, P_UY1, P_UY1RAW,
-    P_WORDS, P_YBD, P_YBS, P_YTD, P_YTS, R_FLAGS, R_FLAT, R_G, R_LENGTH,
-    R_LEX, R_LEY, R_LIGHT, R_LSX, R_LSY, R_OFFX, R_PIECE0, R_PLANEH, R_SOFF,
-    R_X0, R_X1, SPAN_DC, SPAN_E2B, SPAN_E2T, SPAN_NODRAW, pack16, pack_span,
+    KIND_MID, KIND_WALL, LD_SKY, LD_WRITTEN, NR, P_OFFY, P_TEX, P_TH, P_TW,
+    P_UY1, P_UY1RAW, P_WORDS, P_YBD, P_YBS, P_YTD, P_YTS, R_FLAGS, R_FLAT,
+    R_G, R_LENGTH, R_LEX, R_LEY, R_LIGHT, R_LSX, R_LSY, R_OFFX, R_PIECE0,
+    R_PLANEH, R_SOFF, R_X0, R_X1, SPAN_DC, SPAN_E2B, SPAN_E2T, SPAN_NODRAW,
+    pack16, pack_span,
 )
+from doomtpu_torch.ops.resolve import camera_scalars
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
-    F32, I32, as_i16, cos_sin, div_const, div_trunc, f32, fdiv, reciprocal,
-    rem_trunc, smul, wrap_tex,
+    F32, I32, as_i16, f32, fdiv, reciprocal, rem_trunc, smul, wrap_tex,
 )
 from doomtpu_torch.render.resolve import shade
 from doomtpu_torch.trace import spanned
 
-LD_WRITTEN = 1 << 24
-LD_SKY = 1 << 25
 FLAG_HAS_MID = 1 << 12
 
 MID_PLANES = 7    # span, d1 (texel column), d2 (by|ty), d3 (offy|th),
@@ -181,18 +179,7 @@ def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     i32) for `paint`, from a camera-stage frame and the traversal
     order."""
     rows, scnt = build_rows(level, frame, order)
-    stw = SKY_TEXTURE_WIDTH
-    ang = f32(angle)
-    c, s = cos_sin(ang)
-    camf = torch.stack([c, s, f32(floor_height)], -1).contiguous()
-    tx_off = as_i16(div_const(ang * -float(stw), math.pi / 2.0))
-    tx_off = tx_off + stw
-    tx_off = torch.where(
-        tx_off < 0, tx_off + stw * (1 - div_trunc(tx_off, stw)), tx_off
-    )
-    cami = torch.stack(
-        [as_i16(f32(px)), as_i16(f32(py)), tx_off], -1
-    ).to(I32).contiguous()
+    camf, cami = camera_scalars(angle, px, py, floor_height)
     return rows, scnt, camf, cami
 
 

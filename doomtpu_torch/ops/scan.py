@@ -266,4 +266,6 @@ def scan_reference(level: DeviceLevel, cfg: RenderConfig, rows, scnt) -> dict:
                 emit(in_ver, [wall_rec(SPAN_E2T)] + wall_d)
                 co = torch.where(in_ver, cb, co)         # segs.rs:333-335
 
-    return {"pool": pool[:, :, :K], "cnt": cnt, "overflow": ovf}
+    # slot-major and contiguous, as the kernel's pool (the resolve kernel
+    # reads each plane in place)
+    return {"pool": pool[:, :, :K].contiguous(), "cnt": cnt, "overflow": ovf}

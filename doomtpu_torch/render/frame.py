@@ -18,7 +18,8 @@ import torch
 
 from doomtpu_torch.config import RenderConfig
 from doomtpu_torch.ops.itempass import item_pass
-from doomtpu_torch.ops.paint import LD_SKY, LD_WRITTEN, render_paint
+from doomtpu_torch.ops.layout import LD_SKY
+from doomtpu_torch.ops.paint import render_paint
 from doomtpu_torch.render import camera as cam
 from doomtpu_torch.render import resolve as res
 from doomtpu_torch.render import things, walls
@@ -79,13 +80,6 @@ def _frame_and_order(level, cfg, px, py, angle, floor_height, sector_light,
     return frame, cam.seg_order(level, cam.traversal_rank(level, px, py))
 
 
-def pack_ld(idx, light, dist, is_sky):
-    """The ld frame the paint kernel writes and the item kernel reads:
-    light(8) << 16 | dist(u16) | written << 24 | sky << 25."""
-    return ((light << 16) | (dist & 0xFFFF)
-            | ((idx >= 0).to(I32) * LD_WRITTEN) | (is_sky.to(I32) * LD_SKY))
-
-
 def _decoded(ld) -> dict:
     """light, dist and is_sky of a packed ld frame."""
     return {
@@ -110,14 +104,14 @@ def _aux_paint(frame, order, out) -> dict:
 def _stages_scan(level, cfg, px, py, angle, floor_height, sector_light,
                  timestamp):
     """The scan + resolve pipeline (JAX _stages_1_2): camera stage ->
-    order -> wall scan -> resolve.  Returns (idx, light, dist, is_sky,
-    aux); aux carries the frame, order, span pool, its counts and
-    overflow [B], and live_dropped / live_stale (0: every active seg is
-    visited), not the per-pixel frames (callers free them early)."""
+    order -> wall scan -> resolve and shade.  Returns (idx, ld, rgb,
+    aux), the frames the paint kernel gives; aux carries the frame,
+    order, span pool, its counts and overflow [B], and live_dropped /
+    live_stale (0: every active seg is visited)."""
     frame, order = _frame_and_order(level, cfg, px, py, angle, floor_height,
                                     sector_light, timestamp)
     pool, cnt, overflow = walls.wall_scan(level, cfg, frame, order)
-    idx, light, dist, is_sky = res.resolve_frame(
+    idx, ld, rgb = res.resolve_frame(
         level, cfg, frame, pool, cnt, px, py, angle, floor_height
     )
     zero = torch.zeros((), dtype=I32, device=px.device)
@@ -125,7 +119,7 @@ def _stages_scan(level, cfg, px, py, angle, floor_height, sector_light,
         "frame": frame, "order": order, "pool": pool, "cnt": cnt,
         "overflow": overflow, "live_dropped": zero, "live_stale": zero,
     }
-    return idx, light, dist, is_sky, aux
+    return idx, ld, rgb, aux
 
 
 def render_walls_planes(
@@ -140,17 +134,18 @@ def render_walls_planes(
     clip pools, or the unified span pool) and counters, and the
     per-pixel light, dist and is_sky."""
     if not paint_available(level, cfg, px.shape[0]):
-        idx, light, dist, is_sky, aux = _stages_scan(
+        idx, ld, rgb, aux = _stages_scan(
             level, cfg, px, py, angle, floor_height, sector_light, timestamp
         )
-        aux.update(light=light, dist=dist, is_sky=is_sky)
-        return idx, res.shade(level, idx, light, dist, is_sky), aux
-    frame, order = _frame_and_order(level, cfg, px, py, angle, floor_height,
-                                    sector_light, timestamp)
-    out = render_paint(level, cfg, frame, order, angle, px, py, floor_height)
-    aux = _aux_paint(frame, order, out)
-    aux.update(_decoded(out["ld"]))
-    return out["idx"], out["rgb"], aux
+    else:
+        frame, order = _frame_and_order(level, cfg, px, py, angle,
+                                        floor_height, sector_light, timestamp)
+        out = render_paint(level, cfg, frame, order, angle, px, py,
+                           floor_height)
+        idx, ld, rgb = out["idx"], out["ld"], out["rgb"]
+        aux = _aux_paint(frame, order, out)
+    aux.update(_decoded(ld))
+    return idx, rgb, aux
 
 
 def render_frame(
@@ -188,15 +183,9 @@ def render_frame(
     if itempass_available(level, cfg, B):
         return _render_item_pass(level, cfg, *args, timestamp)
     if not paint_available(level, cfg, B):
-        idx, light, dist, is_sky, aux = _stages_scan(
+        idx, ld, rgb, aux = _stages_scan(
             level, cfg, px, py, angle, floor_height, sector_light, timestamp
         )
-        # JAX composites the items over (idx, light, dist, is_sky) and
-        # then shades; the item kernel shades the pixels it writes with
-        # the same arithmetic, so shading first gives the same bits
-        rgb = res.shade(level, idx, light, dist, is_sky)
-        ld = pack_ld(idx, light, dist, is_sky)
-        del light, dist, is_sky
         pools = things.pools_from_unified(aux["pool"], aux["cnt"],
                                           aux["frame"])
     else:

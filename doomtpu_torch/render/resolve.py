@@ -1,25 +1,33 @@
-"""Per-pixel resolve: the unified span pool -> palette indices, light,
-distance and sky, and the shade.
+"""Per-pixel resolve: the unified span pool -> the idx, ld and rgb
+frames of the scan + resolve pipeline.
 
-Counterpart of doomtpu/render/resolve.py, in PyTorch ops (the JAX
-package computes these in XLA, outside any kernel).  The wall scan
+Counterpart of doomtpu/render/resolve.py (resolve_frame, shade), which
+the JAX package computes in XLA, outside any kernel.  The wall scan
 (render/walls.py) computed every slot's draw parameters; the resolve
-finds each pixel's winning slot and fetches one texel:
+finds each pixel's winning slot, fetches one texel and shades it:
 
 - the winner fold: walls draw during the scan and planes after, so a
   plane beats a wall and a later slot beats an earlier one.  The port
-  finds one winner slot per pixel for walls and one for planes (a
-  scatter-max of slot ids over the rows each slot covers) and gathers
-  the data planes at the winners once, where the JAX fold carries seven
-  [B, H, W] i32 accumulators through all K slots: the same values, with
-  work and memory that follow the covered rows;
+  finds one winner slot per pixel for walls and one for planes and
+  reads the data planes at the winners once, where the JAX fold carries
+  seven [B, H, W] i32 accumulators through all K slots: the same values,
+  with work and memory that follow the covered rows;
 - walls: linear v from the slot's full bottom/top edges
   (bitmap_render.rs:213-276), u came from the scan;
 - floors/ceilings: per-pixel inverse projection into the 64x64 flat
   (visplanes.rs:103-129); sky: angle-scrolled (visplanes.rs:42-80);
-- one gather from the column atlas when the sky is opaque, else the
+- one fetch from the column atlas when the sky is opaque, else the
   masked-sky fetch (a transparent sky texel shows the wall drawn
-  earlier).
+  earlier);
+- the shade, and the ld word the paint kernel writes (`pack_ld`), so
+  the deferred pass takes the same (idx, ld, rgb) frames from both
+  pipelines.  JAX composites the items over (idx, light, dist, is_sky)
+  and then shades; the item kernel shades the pixels it writes with the
+  same arithmetic, so shading first gives the same bits.
+
+`resolve_frame` launches the hand-written CUDA kernel on CUDA tensors
+(ops/resolve.py, csrc/resolve.cu: one pass, no [B, H, W] temporaries)
+and runs `resolve_reference`, its plain PyTorch version, on CPU tensors.
 
 Arithmetic follows the jitted JAX functions: a division by a constant
 is a multiply by its f32 reciprocal (jmath.div_const), a division by a
@@ -39,8 +47,9 @@ from doomtpu_torch.config import (
     ASPECT_RATIO_CORRECTION, FLAT_SIZE, PLAYER_EYE_HEIGHT, SKY_TEXTURE_HEIGHT,
     SKY_TEXTURE_WIDTH, RenderConfig,
 )
+from doomtpu_torch.ops import resolve as kernel
 from doomtpu_torch.ops.layout import (
-    KIND_CEIL, KIND_FLOOR, KIND_WALL, unpack_span,
+    KIND_CEIL, KIND_FLOOR, KIND_WALL, LD_SKY, LD_WRITTEN, unpack_span,
 )
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
@@ -89,10 +98,40 @@ def resolve_frame(
     pool, cnt,
     px, py, angle, floor_height,      # player state [B]
 ):
-    """Walls + planes + sky -> (idx, light, dist, is_sky), each [B,H,W].
+    """Walls + planes + sky, shaded -> (idx, ld, rgb), each [B, H, W] i32:
+    palette indices (-1 unwritten), the ld words (`pack_ld`) and the
+    packed 0xRRGGBB shade (0 where unwritten).
 
-    pool is render/walls.wall_scan's (spans, [d1..d6]), each [B, W, K];
-    slots at or past cnt [B, W] are never read."""
+    pool is render/walls.wall_scan's (spans, [d1..d6]), each a [B, W, K]
+    view of a slot-major [B, K, W] store; slots at or past cnt [B, W]
+    are never read.  CUDA tensors launch the kernel (ops/resolve.py);
+    CPU tensors run `resolve_reference`.  Anything else raises."""
+    kernel.check_inputs(level, cfg, pool, cnt, px, py, angle, floor_height)
+    if cnt.device.type == "cpu":
+        return resolve_reference(level, cfg, frame, pool, cnt, px, py, angle,
+                                 floor_height)
+    if cnt.device.type != "cuda":
+        raise ValueError(f"resolve: no kernel for device {cnt.device}")
+    camf, cami = kernel.camera_scalars(angle, px, py, floor_height)
+    return kernel.resolve(level, cfg, pool, cnt, camf, cami)
+
+
+def resolve_reference(level: DeviceLevel, cfg: RenderConfig, frame: dict,
+                      pool, cnt, px, py, angle, floor_height):
+    """The plain PyTorch resolve: `resolve_frame`'s arguments and
+    outputs, the same bits, from [B, H, W] tensor operations (the winner
+    fold, the texel fetch, the shade, the ld packing)."""
+    kernel.check_inputs(level, cfg, pool, cnt, px, py, angle, floor_height)
+    idx, light, dist, is_sky = _resolve_fields(level, cfg, pool, cnt, px,
+                                               py, angle, floor_height)
+    rgb = shade(level, idx, light, dist, is_sky)
+    return idx, pack_ld(idx, light, dist, is_sky), rgb
+
+
+def _resolve_fields(level: DeviceLevel, cfg: RenderConfig, pool, cnt,
+                    px, py, angle, floor_height):
+    """The plain resolve before the shade: (idx, light, dist, is_sky),
+    each [B, H, W], as JAX's resolve_frame returns them."""
     spans, (d1, d2, d3, d4, d5, _) = pool
     B, W, K = spans.shape
     H = cfg.height
@@ -228,6 +267,13 @@ def resolve_frame(
     dist = torch.where(from_plane, plane_dist, dist_w)
     dist = torch.where(under_sky_wall, dist_w, dist)
     return idx, light, dist, use_sky
+
+
+def pack_ld(idx, light, dist, is_sky):
+    """The ld frame the paint kernel writes and the item kernel reads:
+    light(8) << 16 | dist(u16) | written << 24 | sky << 25."""
+    return ((light << 16) | (dist & 0xFFFF)
+            | ((idx >= 0).to(I32) * LD_WRITTEN) | (is_sky.to(I32) * LD_SKY))
 
 
 @spanned("doom.resolve")

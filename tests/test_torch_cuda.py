@@ -1,6 +1,7 @@
-"""Tests that need a CUDA card: the paint, item, item-pass and wall-scan
-kernels against their plain PyTorch versions (on tall and wide screens
-too, and the paint kernel under a live-seg cap that drops segs), the
+"""Tests that need a CUDA card: the paint, item, item-pass, wall-scan and
+resolve kernels against their plain PyTorch versions (on tall and wide
+screens too, the paint kernel under a live-seg cap that drops segs, the
+resolve under a sky with transparent texels and on hand-made pools), the
 Hopper probes P1-P4 against theirs (every construct at both launch
 shapes, small N and S), and
 render / render_walls on the card against the same calls on the CPU, on
@@ -25,7 +26,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import tall_atlas  # noqa: E402
+from chip_smoke import sky_masked, tall_atlas  # noqa: E402
 from doomtpu_torch.wad import synth  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.config import RenderConfig  # noqa: E402
@@ -34,9 +35,11 @@ from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
 from doomtpu_torch.ops import probe_visit as pv  # noqa: E402
 from doomtpu_torch.ops import probe_ybounds as pyb  # noqa: E402
+from doomtpu_torch.ops import resolve as kres  # noqa: E402
 from doomtpu_torch.ops import scan as ts  # noqa: E402
 from doomtpu_torch.render import camera as cam  # noqa: E402
-from doomtpu_torch.render import things  # noqa: E402
+from doomtpu_torch.render import resolve as res  # noqa: E402
+from doomtpu_torch.render import things, walls  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -385,6 +388,91 @@ def _assert_scan_equal(got, want, K):
                            torch.where(below, want["pool"][p], 0)), p
 
 
+RESOLVE_CASES = ["e1m1-scale-B64", "e1m1-scale-masked", "sky-masked",
+                 "640x255", "320x768", "hand-made"]
+
+
+def _hand_made(pool, cnt):
+    """A pool built by hand from a real one: columns with no record and
+    columns full to K (their slots past the count filled with copies of
+    their own records), texture-less walls (SPAN_NODRAW) and spans
+    clipped above row 0 and below the screen's last row."""
+    spans, planes = pool
+    B, W, K = spans.shape
+    store = torch.stack([p.transpose(1, 2) for p in [spans, *planes]])
+    k = torch.arange(K, device=cnt.device)[None, :, None]
+    src = (k % cnt[:, None, :].clamp(min=1)).expand(B, K, W)
+    store = torch.gather(store, 2, src[None].expand_as(store))
+    s = store[0]
+    s = torch.where(((s >> 29) & 3 == 0) & (k % 3 == 1), s | ts.SPAN_NODRAW,
+                    s)
+    s = torch.where(k % 4 == 2, s & ~(255 << 8), s)      # y0 = -1
+    s = torch.where(k % 4 == 3, s | 255, s)              # y1 = 254
+    store[0] = s
+    x = torch.arange(W, device=cnt.device)[None]
+    cnt = torch.where((x % 5 == 1) & (cnt > 0), K, cnt)
+    cnt = torch.where(x % 5 == 2, 0, cnt).to(torch.int32).contiguous()
+    return (store[0].transpose(1, 2),
+            [p.transpose(1, 2) for p in store[1:]]), cnt
+
+
+@pytest.mark.parametrize("case", RESOLVE_CASES)
+def test_resolve_kernel_equals_plain_version(cuda, case):
+    """The resolve kernel against resolve_reference on the wall scan's
+    pool, bit for bit in idx, ld and rgb: e1m1-scale spread poses at
+    B=64, the GRATE level of test_render_masked_on_card_equals_cpu,
+    e1m1-scale's sky with transparent texels, a wide screen of 255 rows
+    and a tall one of 768 (rows past 254 take no span), and hand-made
+    pools."""
+    W, H, K = 320, 200, 96
+    if case in ("640x255", "320x768"):
+        W, H = map(int, case.split("x"))
+    cfg = RenderConfig(width=W, height=H, span_capacity=K)
+    if case == "e1m1-scale-masked":
+        eng = _masked_engine(cuda, cfg)
+        st = _state(eng, *_spread(eng.tables, 32))
+    elif case in ("e1m1-scale-B64", "sky-masked"):
+        eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                        config=cfg, device=cuda)
+        st = _state(eng, *_spread(eng.tables, 64 if "B64" in case else 32))
+    else:
+        eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", config=cfg,
+                                        device=cuda)
+        views = VIEWS * 2
+        st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
+                    np.asarray([v[2] for v in views], np.float32))
+    px, py = st.pos[:, 0], st.pos[:, 1]
+    poses = (px, py, st.angle, st.floor_height)
+    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
+                                st.floor_height, st.sector_light,
+                                st.timestamp)
+    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    pool, cnt, ovf = walls.wall_scan(eng.level, cfg, frame, order)
+    assert int(ovf.sum()) == 0
+    level = eng.level
+    if case == "sky-masked":
+        level = sky_masked(level)
+    elif case == "hand-made":
+        pool, cnt = _hand_made(pool, cnt)
+        assert bool((cnt == K).any()) and bool((cnt == 0).any())
+    before = kres.resolve.launches
+    got = res.resolve_frame(level, cfg, frame, pool, cnt, *poses)
+    torch.cuda.synchronize()
+    assert kres.resolve.launches == before + 1
+    want = res.resolve_reference(level, cfg, frame, pool, cnt, *poses)
+    for name, g, w in zip(("idx", "ld", "rgb"), got, want):
+        assert g.is_cuda and g.dtype == torch.int32, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+    idx, ld = got[:2]
+    assert float((idx[:, :255] >= 0).float().mean()) > 0.3
+    if case == "sky-masked":
+        assert bool(((ld & tp.LD_SKY) != 0).any())
+        opaque = res.resolve_frame(eng.level, cfg, frame, pool, cnt, *poses)
+        assert int((opaque[0] != idx).sum()) > 0
+    if H > 255:
+        assert bool((idx[:, 255:] == -1).all())
+
+
 def test_render_masked_on_card_equals_cpu(cuda):
     """The scan + resolve pipeline end to end, B=8 spread poses."""
     cfg = RenderConfig(span_capacity=64, mid_capacity=40, clip_capacity=64,
@@ -392,13 +480,13 @@ def test_render_masked_on_card_equals_cpu(cuda):
     gpu, cpu = _masked_engine(cuda, cfg), _masked_engine("cpu", cfg)
     assert not gpu.level.paint_ok
     pos, ang = _spread(cpu.tables, 8)
-    before = (tp.paint.launches, ts.scan.launches,
+    before = (tp.paint.launches, ts.scan.launches, kres.resolve.launches,
               ti.composite_items.launches)
     idx, rgb = gpu.render(_state(gpu, pos, ang))
     torch.cuda.synchronize()
-    assert (tp.paint.launches, ts.scan.launches,
+    assert (tp.paint.launches, ts.scan.launches, kres.resolve.launches,
             ti.composite_items.launches) == (before[0], before[1] + 1,
-                                             before[2] + 1)
+                                             before[2] + 1, before[3] + 1)
     idx_c, rgb_c = cpu.render(_state(cpu, pos, ang))
     assert torch.equal(idx.cpu(), idx_c)
     assert torch.equal(rgb.cpu(), rgb_c)
@@ -430,6 +518,7 @@ def test_moving_rollout_on_card_equals_cpu(cuda, pipeline):
     assert set(diffs.values()) == {0}, diffs
     assert stale == stale_cpu
     assert launches["paint" if reuse else "scan"] == 4
+    assert launches["resolve"] == (0 if reuse else 4)
     assert launches["items"] == 4
     if reuse:
         assert stale > 16 * 3

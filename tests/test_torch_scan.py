@@ -40,6 +40,7 @@ from doomtpu.render.device import DeviceLevel as JaxLevel  # noqa: E402
 from doomtpu.wad.reader import WadFile as JaxWad  # noqa: E402
 from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
+from doomtpu_torch.ops import resolve as tkernel  # noqa: E402
 from doomtpu_torch.ops import scan as ts  # noqa: E402
 from doomtpu_torch.render import camera as tcam  # noqa: E402
 from doomtpu_torch.render import frame as tframe  # noqa: E402
@@ -246,17 +247,32 @@ def test_wall_scan_equals_jax(case, demo, masked, jax_demo):
     assert kinds == {0, 1, 2, 3}, kinds
 
 
+def _slot_major(pool):
+    """A [B, W, K] pool (JAX's layout) as [B, W, K] views of slot-major
+    [B, K, W] stores, the layout of the port's wall scan."""
+    t = lambda x: torch.from_numpy(
+        np.ascontiguousarray(np.swapaxes(np.asarray(x), 1, 2))
+    ).transpose(1, 2)
+    return t(pool[0]), [t(p) for p in pool[1]]
+
+
 def _port_resolve(fx, cfg, level, pool, cnt):
+    """The port's resolve_frame on a JAX pool: (idx, ld, rgb)."""
     px, py, pa, fh = fx.torch[:4]
-    t = lambda x: torch.from_numpy(np.array(x))
-    tpool = (t(pool[0]), [t(p) for p in pool[1]])
-    out = tres.resolve_frame(level, cfg, None, tpool, t(cnt), px, py, pa, fh)
-    return out + (tres.shade(level, *out),)
+    return tres.resolve_frame(level, cfg, None, _slot_major(pool),
+                              torch.from_numpy(np.array(cnt)), px, py, pa, fh)
+
+
+def _decoded(out):
+    """(idx, light, dist, is_sky, rgb) of resolve_frame's (idx, ld, rgb)."""
+    idx, ld, rgb = out
+    d = tframe._decoded(ld)
+    return idx, d["light"], d["dist"], d["is_sky"], rgb
 
 
 def _assert_resolve_equal(got, want):
     for name, g, w in zip(("idx", "light", "dist", "is_sky", "rgb"),
-                          got, want):
+                          _decoded(got), want):
         assert g.dtype == (torch.bool if name == "is_sky" else torch.int32)
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
 
@@ -267,13 +283,15 @@ def test_resolve_and_shade_equal_jax(demo, jax_demo):
     got = _port_resolve(demo, CFG, demo.tl, j["pool"], j["cnt"])
     _assert_resolve_equal(got, [j[k] for k in ("idx", "light", "dist",
                                                "is_sky", "rgb")])
-    idx, is_sky = got[0], got[3]
+    idx, is_sky = got[0], _decoded(got)[3]
     assert float((idx >= 0).float().mean()) > 0.5 and bool(is_sky.any())
 
 
-def test_resolve_masked_sky_equals_jax(demo, jax_demo):
-    """A sky texture with transparent texels takes the resolve's
-    masked-sky fetch in both packages (resolve.py:197-221)."""
+@pytest.fixture(scope="module")
+def masked_sky(demo, jax_demo):
+    """The demo level with a sky texture of transparent texels, in both
+    packages, and JAX's resolve and shade of the demo pool there:
+    (port level, JAX's idx, light, dist, is_sky, rgb)."""
     a = demo.a
     mask = np.array(a.tex_mask)
     mask[a.sky_tex, :64, ::2] = False
@@ -283,10 +301,91 @@ def test_resolve_masked_sky_equals_jax(demo, jax_demo):
     assert not jl.sky_is_opaque and not tl.sky_is_opaque and not tl.paint_ok
     j = jax_demo
     want = _jax_resolve(jl, CFG, j["pool"], j["cnt"], demo.np)
+    return tl, [np.asarray(w) for w in want]
+
+
+def test_resolve_masked_sky_equals_jax(demo, jax_demo, masked_sky):
+    """A sky texture with transparent texels takes the resolve's
+    masked-sky fetch in both packages (resolve.py:197-221)."""
+    tl, want = masked_sky
+    j = jax_demo
     got = _port_resolve(demo, CFG, tl, j["pool"], j["cnt"])
     _assert_resolve_equal(got, want)
     # the transparent sky texels changed the frame
     assert int((got[0].numpy() != j["idx"]).sum()) > 0
+
+
+@pytest.mark.parametrize("sky", ["opaque", "masked"])
+def test_resolve_frame_is_the_shade_and_the_ld_of_the_fields(
+        demo, jax_demo, masked_sky, sky):
+    """On CPU tensors resolve_frame (the plain version) gives the idx,
+    the shade and pack_ld of the resolved fields: JAX's resolve_frame,
+    then its shade, and the port's pack_ld of JAX's fields, bit for bit
+    in every word (the written and sky bits too)."""
+    j = jax_demo
+    if sky == "opaque":
+        level, want = demo.tl, [j[k] for k in ("idx", "light", "dist",
+                                                "is_sky", "rgb")]
+    else:
+        level, want = masked_sky
+    before = tkernel.resolve.launches
+    idx, ld, rgb = _port_resolve(demo, CFG, level, j["pool"], j["cnt"])
+    assert tkernel.resolve.launches == before      # CPU: the plain version
+    t = lambda x: torch.from_numpy(np.array(x))
+    np.testing.assert_array_equal(idx.numpy(), want[0])
+    np.testing.assert_array_equal(
+        ld.numpy(), tres.pack_ld(*map(t, want[:4])).numpy())
+    np.testing.assert_array_equal(rgb.numpy(), want[4])
+    px, py, pa, fh = demo.torch[:4]
+    ref = tres.resolve_reference(level, CFG, None, _slot_major(j["pool"]),
+                                 t(j["cnt"]), px, py, pa, fh)
+    for g, r in zip((idx, ld, rgb), ref):
+        assert torch.equal(g, r)
+
+
+def test_render_walls_planes_decodes_aux_from_ld(demo, jax_demo):
+    """The scan branch of render_walls_planes decodes light, dist and
+    is_sky from the resolve's ld frame: JAX's resolved fields, and JAX's
+    idx and shade."""
+    j = jax_demo
+    px, py, pa, fh, sl, _, tsm = demo.torch
+    idx, rgb, aux = tframe.render_walls_planes(demo.tl, CFG, px, py, pa, fh,
+                                               sl, tsm)
+    np.testing.assert_array_equal(idx.numpy(), j["idx"])
+    np.testing.assert_array_equal(rgb.numpy(), j["rgb"])
+    for k in ("light", "dist", "is_sky"):
+        np.testing.assert_array_equal(aux[k].numpy(), j[k], k)
+
+
+@pytest.fixture(scope="module")
+def demo_scan(demo):
+    """The port's frame and wall scan of the demo poses: (frame, pool,
+    cnt)."""
+    frame, order = demo.port_frame(CFG)
+    pool, cnt, _ = twalls.wall_scan(demo.tl, CFG, frame, order)
+    return frame, pool, cnt
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "device", "layout",
+                                   "cnt"])
+def test_resolve_wrapper_raises_on_what_the_kernel_does_not_take(
+        demo, demo_scan, fault):
+    frame, (spans, planes), cnt = demo_scan
+    px, py, pa, fh = demo.torch[:4]
+    if fault == "dtype":
+        spans = spans.to(torch.int64)
+    elif fault == "shape":
+        px = px[:-1]
+    elif fault == "device":
+        spans, planes, cnt = (spans.to("meta"), [p.to("meta") for p in planes],
+                              cnt.to("meta"))
+    elif fault == "layout":       # [B, W, K] contiguous: not slot-major
+        spans = spans.contiguous()
+    else:
+        cnt = cnt.t().contiguous().t()
+    with pytest.raises(ValueError):
+        tres.resolve_frame(demo.tl, CFG, frame, (spans, planes), cnt, px, py,
+                           pa, fh)
 
 
 def test_unified_pools_through_deferred_pass_equal_jax(demo, jax_demo):
@@ -297,10 +396,8 @@ def test_unified_pools_through_deferred_pass_equal_jax(demo, jax_demo):
     frame, order = demo.port_frame(CFG)
     pool, cnt, _ = twalls.wall_scan(demo.tl, CFG, frame, order)
     px, py, pa, fh, sl, ms, _ = demo.torch
-    idx, light, dist, is_sky = tres.resolve_frame(
+    idx, ld, rgb = tres.resolve_frame(
         demo.tl, CFG, frame, pool, cnt, px, py, pa, fh)
-    rgb = tres.shade(demo.tl, idx, light, dist, is_sky)
-    ld = tframe.pack_ld(idx, light, dist, is_sky)
     clip, mid = tthings.pools_from_unified(pool, cnt, frame)
 
     # plane records sit among the clip records and carry no clip bit

@@ -37,7 +37,14 @@ ROOT = Path(__file__).resolve().parents[1]
 # host round trips of the CUDA path (the card's census, PERF.md §5): a
 # tick's movement, and a render call on each pipeline
 SYNCS_TICK = 2
-SYNCS_RENDER = {"paint": 7, "scan": 10}
+SYNCS_RENDER = {"paint": 7, "scan": 7}
+# round trips a render's plain versions make on the CPU and the kernels
+# on the card do not: the paint kernel's plain version shades with
+# render/resolve.shade (its constants' upload, inside doom.walls); the
+# plain resolve reads the sizes of its two pair lists (`_winners`) and
+# shades (inside doom.resolve, where the kernel's path keeps its one
+# trig read)
+PLAIN_SYNCS = {"paint": 1, "scan": 3}
 
 DEMO = RenderConfig(width=64, height=48, span_capacity=16, mid_capacity=4,
                     clip_capacity=16, item_capacity=4)
@@ -146,17 +153,22 @@ def _outside(rng, spans):
 
 
 def test_one_sync_range_a_round_trip(runs):
-    """The round trips of the CUDA path.  On the CPU the paint kernel's
-    plain version shades its frame with render/resolve.shade, whose
-    constants the kernel on the card never uploads: inside doom.walls,
-    one range a render on the paint pipeline, none on the scan's."""
+    """The round trips of the CUDA path, and those of the plain versions
+    the CPU runs in place of the kernels (PLAIN_SYNCS): inside
+    doom.walls, one a render on the paint pipeline and none on the
+    scan's; inside doom.resolve, the plain resolve's three and the trig
+    read of the kernel's path on the scan pipeline."""
     pipeline, _, _, rollout, render = runs
     for rng, calls, ticks in ((rollout, T, T), (render, 1, 0)):
         syncs, walls = rng["doom.sync"], rng["doom.walls"]
-        assert len(_outside(syncs, walls)) == (ticks * SYNCS_TICK + calls
-                                               * SYNCS_RENDER[pipeline])
+        plain = calls * PLAIN_SYNCS[pipeline]
+        assert len(syncs) - plain == (ticks * SYNCS_TICK + calls
+                                      * SYNCS_RENDER[pipeline])
         assert len(syncs) - len(_outside(syncs, walls)) == (
-            calls if pipeline == "paint" else 0)
+            plain if pipeline == "paint" else 0)
+        if pipeline == "scan":
+            resolve = rng["doom.resolve"]
+            assert len(syncs) - len(_outside(syncs, resolve)) == plain + calls
         # no round trip inside another
         assert all(b0 <= a1 for (_, b0), (a1, _) in zip(syncs, syncs[1:]))
 
