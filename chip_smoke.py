@@ -2584,9 +2584,11 @@ def trace_report(out_path: str, n: int = 2048, ticks: int = 32) -> int:
     """The program's spans on the card (doomtpu_torch/trace.py), as the
     benchmark's cells run the engine: e1m1-scale at 320x200, n spread
     cameras walking, pools calibrated on the states rendered, on the
-    paint and the scan pipeline.  For each: the sync census of one tick
-    and one render (`sync_census`), every warning inside a doom.sync
-    range; the spans a tick; the cost of a span outside a profiler; and
+    paint, the scan and the item-pass pipeline.  For each: the sync
+    census of one tick and one render (`sync_census`), every warning
+    inside a doom.sync range; on the item pass, its launches a render
+    and whether it takes a batch of 4096 (`frame.itempass_available`);
+    the spans a tick; the cost of a span outside a profiler; and
     one profiled episode with the program's spans and without them, in
     turns (on, off, off, on, twice), its frames' checksums equal.  Writes the
     numbers to `out_path` as JSON."""
@@ -2599,6 +2601,8 @@ def trace_report(out_path: str, n: int = 2048, ticks: int = 32) -> int:
     from doomtpu_torch import trace
     from doomtpu_torch.config import RenderConfig
     from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.ops.itempass import item_pass
+    from doomtpu_torch.render import frame
     from doomtpu_torch.sim import player
     from doomtpu_torch.wad import synth
 
@@ -2630,11 +2634,13 @@ def trace_report(out_path: str, n: int = 2048, ticks: int = 32) -> int:
                           player.KEY_ALT | player.KEY_LEFT], dtype=torch.int32)
     ok = True
     wad = synth.e1m1_scale_wad()
+    paint = RenderConfig(width=320, height=200, use_pallas_paint=True,
+                         paint_percam_compact=True)
     for pipeline, cfg in (
-            ("paint", RenderConfig(width=320, height=200,
-                                   use_pallas_paint=True,
-                                   paint_percam_compact=True)),
-            ("scan", RenderConfig(width=320, height=200))):
+            ("paint", paint),
+            ("scan", RenderConfig(width=320, height=200)),
+            ("itempass", dataclasses.replace(paint,
+                                             use_item_pass_kernel=True))):
         eng = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=dev)
         pos, ang = spread_poses(eng.tables, n)
         s0 = eng.new_game(n, pos=pos, angle=ang,
@@ -2662,6 +2668,18 @@ def trace_report(out_path: str, n: int = 2048, ticks: int = 32) -> int:
             for site in c["sites"]:
                 log(f"  {site}")
             ok &= inside == len(c["sites"]) and c["nested"] == 0
+        if cfg.use_item_pass_kernel:
+            n0 = item_pass.launches
+            eng.render(s1)
+            torch.cuda.synchronize()
+            r["item_pass_launches_a_render"] = item_pass.launches - n0
+            r["itempass_available_4096"] = frame.itempass_available(
+                eng.level, eng.config, 4096)
+            log(f"{pipeline}: {r['item_pass_launches_a_render']} item-pass "
+                f"launch(es) a render; B=4096 takes the item pass: "
+                f"{r['itempass_available_4096']}")
+            ok &= (r["item_pass_launches_a_render"] == 1
+                   and r["itempass_available_4096"])
         # spans a tick of a rollout, by name, and the episode timed
         two = lambda: eng.rollout(s0, controls[:2], draws=draws[:2],
                                   return_frames=True)

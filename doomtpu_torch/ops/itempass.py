@@ -55,6 +55,7 @@ from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, f32, fdiv, smul, wrap_tex,
 )
 from doomtpu_torch.render.resolve import unpack16_lo
+from doomtpu_torch.trace import spanned
 
 # the item pack (render/things.item_pack): per selected item and camera,
 # the scalars the kernel recomputes each column's sprite math from, as
@@ -185,6 +186,7 @@ def itempass_blocks_per_sm(H: int, KC: int, KM: int,
                                                          KM)
 
 
+@spanned("doom.itempass")
 def item_pass(level: DeviceLevel, cfg: RenderConfig, items: dict,
               paint_out: dict):
     """Paint `items` (render/things.item_pack) over the paint frame of

@@ -267,6 +267,7 @@ def _select_items(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     return out
 
 
+@spanned("doom.itempass")
 def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
               px, py, angle, floor_height, sector_light, mobj_state):
     """The item-pass kernel's per-item packs (JAX things.item_pack).

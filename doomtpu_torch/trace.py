@@ -14,6 +14,8 @@ time, and each gap, can be put down to the layer the host was in:
     doom.walls      the wall kernels: paint (K1) or wall scan (K4)
     doom.resolve    the scan pipeline's resolve and shade
     doom.deferred   the deferred pass: sprites, masked mids, K2
+    doom.itempass   the item pass in the deferred pass's place: the
+                    item pack and K3
     doom.frames     a rollout's copy of its frames into one tensor
     doom.sync       a host round trip: a read of device data by the
                     host, or an upload that waits for the device, and

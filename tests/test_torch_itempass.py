@@ -16,6 +16,10 @@ once per fixture (render_frame and item_pack in one function); frames
 are per camera, so the demo's B=4 case is held to the first four
 cameras of the B=8 run.
 
+The benchmark's e1m1-itempass pipeline is held, at a small screen, to
+the benchmark's own plain reference (portbench/reference), as each run
+of its cell is on the card.
+
 Tolerance: exact equality of idx, rgb, the item packs (f32 rows bit for
 bit, NaNs where JAX has NaNs) and the counters.
 """
@@ -39,6 +43,7 @@ from doomtpu.render import frame as jframe  # noqa: E402
 from doomtpu.render import things as jthings  # noqa: E402
 from doomtpu.render.device import DeviceLevel as JaxLevel  # noqa: E402
 from doomtpu.wad.reader import WadFile as JaxWad  # noqa: E402
+from doomtpu_torch import config as tcfg  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.ops import itempass as tip  # noqa: E402
 from doomtpu_torch.ops import items as ti  # noqa: E402
@@ -363,3 +368,62 @@ def test_itempass_tile_fits_every_height(kc, km):
         assert tc * bands <= tip.MAX_BLOCK_THREADS, H
     assert tip.itempass_tile(200, 64, 40) == (32, 16)
     assert tip.itempass_smem_bytes(32, 16, 200, 64, 40) <= 75 * 1024
+
+
+def test_item_pass_frame_equals_the_benchmark_reference(monkeypatch):
+    """The e1m1-itempass cell's pipeline at a small screen: e1m1-scale
+    at B=8, 64x48, spread poses (portbench.generate) after 2 zero-control
+    ticks, pools calibrated, against the benchmark's plain reference
+    (portbench/reference: the scan pipeline and an uncapped deferred
+    pass, another algorithm, which imports nothing of the port).  Every
+    idx and rgb pixel equal, every counter 0; the item pass drew and the
+    deferred pass never ran."""
+    from portbench import generate, manifest
+    from portbench.reference import Reference
+
+    W, H = 64, 48
+    config = manifest.read_json(manifest.config_path("e1m1-itempass"))
+    mix = manifest.read_json(manifest.traffic_path("render-spread"))
+    mix.update(batch=8, chain=3)
+    inputs = generate.generate(mix, 2**33 + 7, generate.level_tables(config))
+    wad = generate.wad_bytes(config)
+    eng = DoomEngine.from_wad_bytes(
+        wad, "e1m1", config=tcfg.RenderConfig(
+            **dict(config["render"], width=W, height=H)), device="cpu")
+    controls = torch.as_tensor(inputs.controls)
+    draws = torch.as_tensor(inputs.draws)
+    st = eng.new_game(inputs.batch, pos=inputs.pos, angle=inputs.angle,
+                      generator=torch.Generator().manual_seed(
+                          inputs.light_seed))
+    for t in range(inputs.ticks):
+        st = eng.tick(st, controls[t], draws=draws[t])
+    assert not controls.any()
+    eng = eng.calibrate([st])
+    assert tframe.itempass_available(eng.level, eng.config, inputs.batch)
+
+    drawn = []
+    item_pass = tframe.item_pass
+
+    def counted(level, cfg, items, out):
+        before = out["idx"].clone()
+        got = item_pass(level, cfg, items, out)
+        drawn.append(int((out["idx"] != before).sum()))
+        return got
+
+    def no_deferred(*a, **kw):
+        raise AssertionError("the deferred pass ran on the item pass")
+    monkeypatch.setattr(tframe, "item_pass", counted)
+    monkeypatch.setattr(tthings, "deferred_pass", no_deferred)
+    idx, rgb = eng.render(st)
+    counters = eng.render_counters(st)
+    assert len(drawn) == 2 and drawn[0] > 0
+    assert set(counters.values()) == {0}, counters
+
+    ref = Reference(wad, "e1m1", W, H, "cpu")
+    rs = ref.initial(inputs.pos, inputs.angle,
+                     torch.Generator().manual_seed(inputs.light_seed))
+    for t in range(inputs.ticks):
+        rs = ref.tick(rs, controls[t], draws[t])
+    ridx, rrgb = ref.render(rs)
+    assert int((idx != ridx).sum()) == 0
+    assert int((rgb != rrgb).sum()) == 0

@@ -5,13 +5,15 @@ rollout and a render open the `doom.*` ranges at the layer boundaries,
 one `doom.sync` range a host round trip (as many a tick and a render
 call as the card's census of synchronizing calls found: SYNCS_TICK and
 SYNCS_RENDER, listed in PERF.md), `doom.sim.move` inside
-`doom.sim.tick`, and a `doom.frames` range around each copy of a
-rollout's frames.  The profiler changes no bit of the frames or the
-state.  Every function the benchmark's metric files wrap or probe is
-still where they look for it.
+`doom.sim.tick`, a `doom.frames` range around each copy of a
+rollout's frames, and on the item pass a `doom.itempass` range around
+the item pack and one around K3 in the deferred pass's place.  The
+profiler changes no bit of the frames or the state.  Every function the
+benchmark's metric files wrap or probe is still where they look for it.
 
 Fixture: the demo level, B=8 spread poses at 64x48 (tests/test_torch_sim.py's
-smallest), on the scan pipeline and on the paint pipeline.
+smallest), on the scan pipeline, the paint pipeline and the paint
+pipeline with the item pass.
 """
 
 import dataclasses
@@ -37,20 +39,21 @@ ROOT = Path(__file__).resolve().parents[1]
 # host round trips of the CUDA path (the card's census, PERF.md §5): a
 # tick's movement, and a render call on each pipeline
 SYNCS_TICK = 2
-SYNCS_RENDER = {"paint": 7, "scan": 7}
+SYNCS_RENDER = {"paint": 7, "scan": 7, "itempass": 7}
 # round trips a render's plain versions make on the CPU and the kernels
 # on the card do not: the paint kernel's plain version shades with
 # render/resolve.shade (its constants' upload, inside doom.walls); the
 # plain resolve reads the sizes of its two pair lists (`_winners`) and
 # shades (inside doom.resolve, where the kernel's path keeps its one
-# trig read)
-PLAIN_SYNCS = {"paint": 1, "scan": 3}
+# trig read); the item pass's plain version makes none
+PLAIN_SYNCS = {"paint": 1, "scan": 3, "itempass": 1}
 
 DEMO = RenderConfig(width=64, height=48, span_capacity=16, mid_capacity=4,
                     clip_capacity=16, item_capacity=4)
-CONFIGS = {"scan": DEMO,
-           "paint": dataclasses.replace(DEMO, use_pallas_paint=True,
-                                        paint_percam_compact=True)}
+PAINT = dataclasses.replace(DEMO, use_pallas_paint=True,
+                            paint_percam_compact=True)
+CONFIGS = {"scan": DEMO, "paint": PAINT,
+           "itempass": dataclasses.replace(PAINT, use_item_pass_kernel=True)}
 B = 8
 T = 2
 MOVES = np.array([[1, 1 | 4, 1 | 8, 2, 16 | 4, 1 | 32, 4, 16 | 8 | 32]] * T,
@@ -87,7 +90,7 @@ def _ranges(prof) -> dict:
     return {k: sorted(v) for k, v in out.items()}
 
 
-@pytest.fixture(scope="module", params=["scan", "paint"])
+@pytest.fixture(scope="module", params=["scan", "paint", "itempass"])
 def runs(request):
     """(pipeline, plain rollout, profiled rollout, profiled render): a
     T-tick rollout with and without the profiler, and the ranges of the
@@ -128,7 +131,7 @@ def test_a_span_outside_a_profiler_is_the_shared_noop(monkeypatch):
 
 
 def test_decorated_port_functions_keep_their_names():
-    from doomtpu_torch.ops import paint, scan
+    from doomtpu_torch.ops import itempass, paint, scan
     from doomtpu_torch.render import camera, camsort, resolve, things
     from doomtpu_torch.sim import player, step
 
@@ -140,11 +143,13 @@ def test_decorated_port_functions_keep_their_names():
                       (paint, "reuse_drop"), (paint, "kept_set"),
                       (paint, "paint"), (scan, "scan"),
                       (resolve, "resolve_frame"), (resolve, "shade"),
-                      (things, "deferred_pass")):
+                      (things, "deferred_pass"), (things, "item_pack"),
+                      (itempass, "item_pass")):
         fn = getattr(mod, name)
         assert (fn.__name__, fn.__module__) == (name, mod.__name__)
         assert hasattr(fn, "__wrapped__"), (mod.__name__, name)
     assert paint.paint.launches >= 0 and scan.scan.launches >= 0
+    assert itempass.item_pass.launches >= 0
 
 
 def _outside(rng, spans):
@@ -155,9 +160,11 @@ def _outside(rng, spans):
 def test_one_sync_range_a_round_trip(runs):
     """The round trips of the CUDA path, and those of the plain versions
     the CPU runs in place of the kernels (PLAIN_SYNCS): inside
-    doom.walls, one a render on the paint pipeline and none on the
+    doom.walls, one a render on the paint pipelines and none on the
     scan's; inside doom.resolve, the plain resolve's three and the trig
-    read of the kernel's path on the scan pipeline."""
+    read of the kernel's path on the scan pipeline; inside
+    doom.itempass, the item pack's three: the sprite scalars' rotate and
+    viewport clip, and its own upload."""
     pipeline, _, _, rollout, render = runs
     for rng, calls, ticks in ((rollout, T, T), (render, 1, 0)):
         syncs, walls = rng["doom.sync"], rng["doom.walls"]
@@ -165,10 +172,13 @@ def test_one_sync_range_a_round_trip(runs):
         assert len(syncs) - plain == (ticks * SYNCS_TICK + calls
                                       * SYNCS_RENDER[pipeline])
         assert len(syncs) - len(_outside(syncs, walls)) == (
-            plain if pipeline == "paint" else 0)
+            0 if pipeline == "scan" else plain)
         if pipeline == "scan":
             resolve = rng["doom.resolve"]
             assert len(syncs) - len(_outside(syncs, resolve)) == plain + calls
+        if pipeline == "itempass":
+            items = rng["doom.itempass"]
+            assert len(syncs) - len(_outside(syncs, items)) == 3 * calls
         # no round trip inside another
         assert all(b0 <= a1 for (_, b0), (a1, _) in zip(syncs, syncs[1:]))
 
@@ -189,14 +199,31 @@ def test_frames_ranges_a_rollout(runs):
     """One doom.frames range for the ticks' stack (one segment of
     max_ticks_per_jit ticks) and one for engine.rollout's concatenation
     of the segments, after every tick; none in a render."""
-    _, _, _, rollout, render = runs
+    pipeline, _, _, rollout, render = runs
     frames = rollout["doom.frames"]
     assert len(frames) == 2
     last_tick = max(b for _, b in rollout["doom.sim.tick"])
     assert all(a > last_tick for a, _ in frames)
     assert "doom.frames" not in render
-    for name in ("doom.camera", "doom.walls", "doom.deferred"):
+    items = "doom.itempass" if pipeline == "itempass" else "doom.deferred"
+    for name in ("doom.camera", "doom.walls", items):
         assert len(render[name]) >= 1, name
+
+
+def test_itempass_ranges_the_item_stage(runs):
+    """On the item pass, two doom.itempass ranges a render, after the
+    walls: the item pack, then K3's call; no deferred pass.  The other
+    pipelines open none."""
+    pipeline, _, _, rollout, render = runs
+    if pipeline != "itempass":
+        assert "doom.itempass" not in render
+        assert "doom.itempass" not in rollout
+        return
+    assert "doom.deferred" not in render and "doom.deferred" not in rollout
+    items, walls = render["doom.itempass"], render["doom.walls"]
+    assert len(items) == 2 and len(rollout["doom.itempass"]) == 2 * T
+    assert max(b for _, b in walls) <= items[0][0]
+    assert items[0][1] <= items[1][0]
 
 
 def test_profiler_changes_no_bit(runs):
