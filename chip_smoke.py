@@ -11,7 +11,9 @@ against its plain PyTorch version on the card (the paint kernel also
 under a live-seg cap that drops segs; the resolve kernel also under a
 sky with transparent texels; every kernel at 320x200, 320x768 and
 1024x200; the item kernel also on a WAD whose masked mid is 256
-rows tall, rendered against the CPU port), then the Hopper probes P1-P4
+rows tall, rendered against the CPU port; the emission kernel at item
+capacity 1, 8 and 24 and on the paint, the JAX-layout and the scan mid
+pools), then the Hopper probes P1-P4
 (ops/probe_visit.py, ops/probe_ybounds.py: each probe kernel against
 its plain version, then the probes' own path with its counts set to 0
 just before and read just after: every P1 construct timed at both
@@ -30,7 +32,9 @@ fails:
 
 - e1m1-scale (paint-eligible): DoomEngine.render_walls (walls, planes,
   sky through the paint kernel) and DoomEngine.render (the full frame:
-  the item kernel too);
+  the emission and item kernels too), with the deferred pass's stage
+  table (selection and packs, emission, item kernel) and the emission
+  against its byte bound;
 - e1m1-scale under a live-seg cap set from the measured live peak:
   render through the paint kernel with its drop mask, live_dropped 0,
   the uncapped frames;
@@ -329,7 +333,7 @@ class Smoke:
 
     def __init__(self, card, dev):
         from doomtpu_torch.ops import (
-            itempass, items, layout, paint, resolve, scan,
+            emit, itempass, items, layout, paint, resolve, scan,
         )
         from doomtpu_torch.render import resolve as res
         from doomtpu_torch.render import walls
@@ -337,13 +341,13 @@ class Smoke:
         self.card, self.dev = card, dev
         self.checksums = {}                 # timed path -> its rgb checksum
         self.paint, self.items, self.scan = paint, items, scan
-        self.itempass = itempass
+        self.itempass, self.emit = itempass, emit
         self.layout = layout
         self.resolve, self.res, self.walls = resolve, res, walls
         self.composite = items.composite_items
         self.kernels = {"paint": paint.paint, "items": self.composite,
                         "scan": scan.scan, "itempass": itempass.item_pass,
-                        "resolve": resolve.resolve}
+                        "resolve": resolve.resolve, "emit": emit.emit}
 
     def zero_counts(self):
         for fn in self.kernels.values():
@@ -559,6 +563,107 @@ class Smoke:
         rows, scnt = self.paint.build_rows(eng.level, frame, order)
         return self.compare_scan(eng, cfg, rows, scnt, label)[0]
 
+    def emit_inputs(self, eng, st, cfg, pipeline):
+        """(pack, mid pool) of the deferred pass's emission on a state:
+        the item pack and the paint path's mid pool ("paint"), the same
+        pool laid out as the JAX package's [B, W, K] store and read
+        through its strides ("paint-bwk"), or the scan path's unified
+        pool ("scan")."""
+        from doomtpu_torch.render import things
+
+        frame, order, args = self.stage_inputs(eng, st, cfg)
+        if pipeline == "scan":
+            pool, cnt, _ = self.walls.wall_scan(eng.level, cfg, frame, order)
+            mid = things.pools_from_unified(pool, cnt, frame)[1]
+        else:
+            mid = things.pools_from_paint(
+                self.paint.paint(eng.level, cfg, *args))[1]
+        if pipeline.endswith("bwk"):
+            bwk = lambda p: p.transpose(1, 2).contiguous().transpose(1, 2)
+            mid = {k: v if k == "cnt" else bwk(v) for k, v in mid.items()}
+        pack, _ = things.item_pack(
+            eng.level, cfg, frame, order, st.pos[:, 0], st.pos[:, 1],
+            st.angle, st.floor_height, st.sector_light, st.mobj_state)
+        return pack, mid
+
+    def compare_emit(self, eng, cfg, pack, mid, label):
+        """The emission kernel against emit_reference: every plane of the
+        pool, icnt, item_overflow and item_peak exactly.  Returns (worst
+        difference, plain ms, the kernel's outputs)."""
+        lvl = eng.level
+        got, ref, plain_ms = against_plain(
+            lambda: self.emit.emit(lvl, cfg, pack, mid),
+            lambda: self.emit.emit_reference(lvl, cfg, pack, mid))
+        names = [f"plane{i}" for i in range(self.items.ITEM_PLANES)] + [
+            "icnt", "item_overflow", "item_peak"]
+        worst, diffs = differing(dict(zip(names, zip(
+            [*got[0], *got[1:]], [*ref[0], *ref[1:]]))))
+        icnt, overflow, peak = got[1:]
+        word = got[0][0]
+        spr = int(((word & self.items.SPR_MARK) != 0).sum())
+        mids = int(((word != 0) & ((word & self.items.SPR_MARK) == 0)).sum())
+        log(f"emit {label}: differing elements per output "
+            f"{json.dumps(diffs)}; slots: {spr} sprite, {mids} mid, peak "
+            f"{int(icnt.max())} of {cfg.item_capacity}; uncapped peak "
+            f"{int(peak.max())}, overflow {int(overflow.sum())}")
+        check(all(v == 0 for v in diffs.values()),
+              f"emit {label}: kernel differs from emit_reference")
+        check(spr > 0, f"emit {label}: no sprite slot")
+        return worst, plain_ms, got
+
+    def check_emit(self, eng, st, cfg, label, pipeline="paint"):
+        pack, mid = self.emit_inputs(eng, st, cfg, pipeline)
+        return self.compare_emit(eng, cfg, pack, mid,
+                                 f"{label} ({pipeline} mid pool)")[0]
+
+    def emit_bound(self, eng, cfg, pack, mid, got):
+        """The emission: the pool written whole (every slot, zeros past a
+        column's count), icnt and the two counters; of the pack, the
+        first three words of every item and the whole of each (camera,
+        item) pair that is present in some column (a valid sprite whose
+        [x0, x1e) meets the screen, a valid mid whose seg a record
+        carries); the mid records below each column's count (kind and
+        seg, 2 words) and the 6 words of the record each mid slot takes.
+        Operations, ~40 per sprite slot (three IEEE divides among them):
+        it is bytes-bound."""
+        import torch
+
+        ipool, icnt = got[0], got[1]
+        nb = lambda t: t.numel() * t.element_size()
+        ip = pack["i"]
+        B, N, _ = ip.shape
+        KI, W, G = cfg.item_capacity, cfg.width, eng.level.num_segs
+        word = ipool[0]
+        spr_slots = int(((word & self.items.SPR_MARK) != 0).sum())
+        mid_slots = int(((word != 0)
+                         & ((word & self.items.SPR_MARK) == 0)).sum())
+        KM = mid["span"].shape[1]
+        rec = ((((mid["span"] >> 29) & 3) == self.layout.KIND_MID)
+               & (torch.arange(KM, device=self.dev)[None, :, None]
+                  < mid["cnt"][:, None]))
+        records = int(torch.clamp(mid["cnt"], max=KM).sum())
+        carried = torch.zeros((B, G + 1), dtype=torch.bool, device=self.dev)
+        carried.scatter_(1, torch.where(rec, mid["d6"], G).reshape(B, -1)
+                         .long(), True)
+        carried[:, G] = False
+        fl, x0, x1e, seg = ip[..., 0], ip[..., 1], ip[..., 2], ip[..., 6]
+        valid, spr = (fl & 1) != 0, (fl & 2) != 0
+        on_mid = torch.gather(carried, 1, torch.clamp(seg, 0, G).long())
+        pairs = int((valid & spr & (x1e > 0) & (x0 < W)).sum()
+                    + (valid & ~spr & on_mid).sum())
+        row = (ip.shape[2] + pack["f"].shape[2]) * 4
+        e_in = (B * N * 12 + pairs * row + records * 2 * 4
+                + mid_slots * 6 * 4 + nb(mid["cnt"]))
+        e_out = nb(ipool) + nb(icnt) + 2 * B * 4
+        e_ops = 40.0 * spr_slots
+        ms, by = bound(e_in + e_out, e_ops)
+        log(f"bound emit: {e_in + e_out} bytes (pool {nb(ipool)} written "
+            f"whole: B={B} x KI={KI} x W={W} x 8 planes; {pairs} (camera, "
+            f"item) pairs present; {spr_slots} sprite and {mid_slots} mid "
+            f"slots, {records} mid records), ~{e_ops:.4g} operations -> "
+            f"{ms:.4f} ms ({by})")
+        return ms, by
+
     @staticmethod
     def fresh(out):
         """The paint result with its own copies of idx / ld / rgb (the
@@ -646,18 +751,20 @@ class Smoke:
         """render_walls (unless `with_walls` is False), then render, each
         driven once: its launches (the walls kernel `walls_kernel` once
         and the other never; the item kernel `item_kernel` once in render
-        only, the other item kernel never), its frames, its counters (all
+        only, the other item kernel never; the emission kernel once with
+        K2, never with K3), its frames, its counters (all
         0) and 16 cameras against the CPU port; then each timed and
         render profiled.  Returns render's launches."""
         import torch
 
         other = "scan" if walls_kernel == "paint" else "paint"
-        no_items = {"items": 0, "itempass": 0,
+        no_items = {"items": 0, "itempass": 0, "emit": 0,
                     "resolve": int(walls_kernel == "scan")}
         sel = torch.linspace(0, B - 1, 16).long().to(self.dev)
         cpu_state = state.map(lambda x: x[sel].cpu())
         runs = [(eng.render, eng.render_counters, cpu_eng.render,
-                 dict(no_items, **{item_kernel: 1}))]
+                 dict(no_items, **{item_kernel: 1},
+                      emit=int(item_kernel == "items")))]
         if with_walls:
             runs.insert(0, (eng.render_walls, eng.render_walls_counters,
                             cpu_eng.render_walls, no_items))
@@ -869,8 +976,8 @@ def tall_mid_cell(s: Smoke) -> int:
     torch.cuda.synchronize()
     got = s.counts()
     log(f"{what}: launches {got}")
-    check(got["items"] == 1 and got["itempass"] == 0,
-          f"{what}: the item kernel did not run once")
+    check(got["items"] == got["emit"] == 1 and got["itempass"] == 0,
+          f"{what}: the item and emission kernels did not run once")
     s.against_cpu(idx, rgb, cpu.render, st.map(lambda x: x.cpu()),
                   torch.arange(n, device=s.dev), what)
     counters = gpu.render_counters(st)
@@ -992,6 +1099,20 @@ def sweep_items(s: Smoke, lvl, cfg, ipool, icnt, bg, clip) -> None:
         f"{json.dumps(sweep)}  [{s.card}]")
 
 
+def log_deferred_stages(stage: dict, label: str, card: str) -> None:
+    """The deferred pass's stage table: the selection and the per-item
+    packs, the emission kernel, K2, their sum and the item pool (packs
+    and emission) in one call."""
+    parts = {k: stage[k] for k in ("selection + pack", "emission kernel",
+                                   "item kernel")}
+    whole = sum(parts.values())
+    log(f"deferred pass stages {label} (CUDA events, ms): " + json.dumps(
+        {**{k: round(v, 4) for k, v in parts.items()},
+         "sum": round(whole, 4)}) + "; shares " + json.dumps(
+        {k: round(v / whole, 4) for k, v in parts.items()})
+        + f"  [{card}]")
+
+
 def paint_cell(s: Smoke) -> dict:
     """e1m1-scale, paint-eligible: render_walls and render through K1
     and K2 (the walls-only and full-frame paths of the first slices)."""
@@ -1044,6 +1165,15 @@ def paint_cell(s: Smoke) -> dict:
         lambda: s.item_inputs(e1, sp, frame, order, pools, cfg), 3)
     ipool, icnt, daux = s.item_inputs(e1, sp, frame, order, pools, cfg)
     clip = pools[0]
+    # the deferred pass's parts: the selection and the per-item packs
+    # (things._item_pack, shared with item_pack), the emission kernel, K2
+    pack_args = (lvl, cfg, frame, order, px, py, sp.angle, sp.floor_height,
+                 sp.sector_light, sp.mobj_state)
+    stage["selection + pack"] = event_ms(
+        lambda: things._item_pack(*pack_args), 3)
+    pack, _ = things._item_pack(*pack_args)
+    stage["emission kernel"] = event_ms(
+        lambda: s.emit.emit(lvl, cfg, pack, pools[1]), 10, spin=True)
 
     # the item pool's one pass over the batch against the same work in
     # chunks of cameras: time and the memory its temporaries take
@@ -1072,6 +1202,7 @@ def paint_cell(s: Smoke) -> dict:
         lambda: unsort_out((out["idx"], out["rgb"]), sort_state(state)[1]), 3)
     log(f"stages e1m1-scale at B={B} (CUDA events, ms): " + json.dumps(
         {k: round(v, 4) for k, v in stage.items()}) + f"  [{s.card}]")
+    log_deferred_stages(stage, f"e1m1-scale B={B}", s.card)
     scnt = args_full[1]
     log(f"active segs per camera: mean {scnt.float().mean().item():.1f}, max "
         f"{scnt.max().item()} of {lvl.num_segs}")
@@ -1088,6 +1219,13 @@ def paint_cell(s: Smoke) -> dict:
         e1, args_full, f"e1m1-scale B={B} main-path inputs")
     err_items, items_plain_ms = s.compare_items(
         e1, cfg, ipool, icnt, bg, clip, f"e1m1-scale B={B} main-path inputs")
+    err_emit, emit_plain_ms, got_emit = s.compare_emit(
+        e1, cfg, pack, pools[1], f"e1m1-scale B={B} main-path inputs")
+    check(all(torch.equal(a, b) for a, b in zip(
+        got_emit, (ipool, icnt, daux["item_overflow"], daux["item_peak"]))),
+        "the emission's outputs differ from the deferred pass's item pool")
+    log(f"emit at B={B}: kernel {stage['emission kernel']:.4f} ms, plain "
+        f"PyTorch {emit_plain_ms:.2f} ms (one call)  [{s.card}]")
     log(f"paint at B={B}: kernel {stage['paint kernel']:.4f} ms, plain "
         f"PyTorch {paint_plain_ms:.2f} ms (one call)  [{s.card}]")
     log(f"items at B={B}: kernel {stage['item kernel']:.4f} ms, plain "
@@ -1121,6 +1259,11 @@ def paint_cell(s: Smoke) -> dict:
         f"{clip_used} clip pool slots used), ~{p_ops:.4g} operations -> "
         f"{paint_bound:.4f} ms ({paint_by})")
     items_bound, items_by = s.items_bound(e1, cfg, ipool, icnt, bg, clip)
+    emit_bound, emit_by = s.emit_bound(e1, cfg, pack, pools[1], got_emit)
+    log(f"emit at B={B}: {stage['emission kernel']:.4f} ms against a "
+        f"{emit_bound:.4f} ms bound ({emit_by}): "
+        f"{100 * emit_bound / stage['emission kernel']:.1f}%  [{s.card}]")
+    del got_emit, pack
     return {
         "paint": {"launches": launches["paint"], "max_abs_err": err_paint,
                   "ms": stage["paint kernel"], "plain_ms": paint_plain_ms,
@@ -1128,6 +1271,9 @@ def paint_cell(s: Smoke) -> dict:
         "items": {"launches": launches["items"], "max_abs_err": err_items,
                   "ms": stage["item kernel"], "plain_ms": items_plain_ms,
                   "bound_ms": items_bound, "bound_by": items_by},
+        "emit": {"launches": launches["emit"], "max_abs_err": err_emit,
+                 "ms": stage["emission kernel"], "plain_ms": emit_plain_ms,
+                 "bound_ms": emit_bound, "bound_by": emit_by},
     }
 
 
@@ -1212,11 +1358,19 @@ def scan_cell(s: Smoke) -> dict:
         lambda: s.item_inputs(eng, sp, frame, order, unified(), cfg), 3)
     pools = unified()
     ipool, icnt, daux = s.item_inputs(eng, sp, frame, order, pools, cfg)
+    pack_args = (lvl, cfg, frame, order, px, py, sp.angle, sp.floor_height,
+                 sp.sector_light, sp.mobj_state)
+    stage["selection + pack"] = event_ms(
+        lambda: things._item_pack(*pack_args), 3)
+    pack, _ = things._item_pack(*pack_args)
+    stage["emission kernel"] = event_ms(
+        lambda: s.emit.emit(lvl, cfg, pack, pools[1]), 10, spin=True)
     bg = [ridx, ld, rgb0]
     stage["item kernel"] = s.timed_items(eng, cfg, ipool, icnt, bg, pools[0])
     log(f"stages e1m1-scale-masked at B={B} (CUDA events, ms): "
         + json.dumps({k: round(v, 4) for k, v in stage.items()})
         + f"  [{s.card}]")
+    log_deferred_stages(stage, f"e1m1-scale-masked B={B}", s.card)
     log(f"active segs per camera: mean {scnt.float().mean().item():.1f}, max "
         f"{scnt.max().item()} of {lvl.num_segs}")
     check(int(daux["item_peak"].max()) <= cfg.item_capacity,
@@ -1227,6 +1381,11 @@ def scan_cell(s: Smoke) -> dict:
     err_items, items_plain_ms = s.compare_items(
         eng, cfg, ipool, icnt, bg, pools[0],
         f"e1m1-scale-masked B={B} main-path inputs")
+    err_emit, _, got_emit = s.compare_emit(
+        eng, cfg, pack, pools[1],
+        f"e1m1-scale-masked B={B} main-path inputs (unified pool)")
+    s.emit_bound(eng, cfg, pack, pools[1], got_emit)
+    del got_emit, pack
     log(f"scan at B={B}: kernel {stage['wall-scan kernel']:.4f} ms, plain "
         f"PyTorch {scan_plain_ms:.2f} ms (one call)  [{s.card}]")
     log(f"resolve at B={B}: kernel {resolve_ms[B]:.4f} ms, plain PyTorch "
@@ -1262,6 +1421,7 @@ def scan_cell(s: Smoke) -> dict:
                     "plain_ms": resolve_plain_ms, "bound_ms": resolve_bound,
                     "bound_by": resolve_by},
         "items_err": err_items,
+        "emit_err": err_emit,
     }
 
 
@@ -1424,12 +1584,12 @@ def moving_rollout(dev, cfg, live_reuse, n=16, ticks=4, seed=3):
     import torch
 
     from doomtpu_torch.engine import DoomEngine
-    from doomtpu_torch.ops import itempass, items, paint, resolve, scan
+    from doomtpu_torch.ops import emit, itempass, items, paint, resolve, scan
     from doomtpu_torch.wad import synth
 
     kernels = {"paint": paint.paint, "items": items.composite_items,
                "scan": scan.scan, "itempass": itempass.item_pass,
-               "resolve": resolve.resolve}
+               "resolve": resolve.resolve, "emit": emit.emit}
     wad = synth.e1m1_scale_wad()
     card = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=dev)
     cpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu")
@@ -1510,8 +1670,9 @@ def rollout_cell(s: Smoke) -> None:
         log(f"main path {what} B={B} T={T}: launches {got}; per tick "
             + json.dumps({k: v / T for k, v in got.items()}))
         check(got == {"paint": T, "items": T, "scan": 0, "itempass": 0,
-                      "resolve": 0},
-              f"{what}: launches {got}, want K1 and K2 once a tick")
+                      "resolve": 0, "emit": T},
+              f"{what}: launches {got}, want K1, the emission and K2 once "
+              f"a tick")
         final, sums[reuse] = out[0], out[1]
         check(tuple(sums[reuse].shape) == (T, B)
               and int(final.tick[0]) == T, f"{what}: output shapes")
@@ -1595,10 +1756,11 @@ def rollout_cell(s: Smoke) -> None:
     # moving cameras: reuse with stale segs (K1's drop bits set by the
     # reuse), then the scan path (K4), 16 cameras against the CPU port
     for label, c, reuse, want in (
-            ("paint, live_reuse", cfg, True, {"paint": 4, "items": 4}),
+            ("paint, live_reuse", cfg, True,
+             {"paint": 4, "items": 4, "emit": 4}),
             ("scan + resolve", dataclasses.replace(
                 cfg, use_pallas_paint=False, span_capacity=96), False,
-             {"scan": 4, "resolve": 4, "items": 4})):
+             {"scan": 4, "resolve": 4, "items": 4, "emit": 4})):
         t0 = time.perf_counter()
         diffs, stale, stale_cpu, got = moving_rollout(s.dev, c, reuse)
         log(f"moving rollout B=16 T=4 {label} vs the CPU port "
@@ -1668,7 +1830,7 @@ def calibration_cell(s: Smoke) -> None:
         f"{census_s:.3f} s, launches {got}, peak {peak:.2f} GiB  [{s.card}]")
     check(got["scan"] > 0, "the census launched no wall-scan kernel")
     check(got["paint"] == got["items"] == got["itempass"]
-          == got["resolve"] == 0,
+          == got["resolve"] == got["emit"] == 0,
           f"the census launched a render kernel: {got}")
 
     scan_cal = dataclasses.replace(
@@ -1765,7 +1927,8 @@ def split_cell(s: Smoke) -> None:
     log(f"split render B={n} in 2 shards: launches {launches}; differing "
         f"elements against the unsplit render {diff}")
     check(got[0].is_cuda and launches["paint"] == 2
-          and launches["items"] == 2, f"split render: launches {launches}")
+          and launches["items"] == launches["emit"] == 2,
+          f"split render: launches {launches}")
     check(diff == 0, "split and unsplit renders differ")
     for call in ("render_counters", "render_walls_counters"):
         c_split = getattr(split_engine, call)(split)
@@ -1793,7 +1956,8 @@ def split_cell(s: Smoke) -> None:
     log(f"split rollout B={n} T={T} live_reuse: launches {launches}; "
         f"live_stale {int(stale_s)} (unsplit {int(stale_u)}); differing "
         f"elements against the unsplit rollout {diff}")
-    check(launches["paint"] == 2 * T and launches["items"] == 2 * T,
+    check(launches["paint"] == 2 * T
+          and launches["items"] == launches["emit"] == 2 * T,
           f"split rollout: launches {launches}")
     check(diff == 0 and int(stale_s) == int(stale_u),
           "split and unsplit rollouts differ")
@@ -2314,7 +2478,8 @@ def resource_report(s: Smoke, libs) -> dict:
     report, each kernel's registers a thread, spill stores and spill
     loads and static shared memory; the dynamic shared memory a block
     takes at the main path's launch (320x200, pools mid 40 / clip 64 /
-    item 24) and the blocks an SM then holds (the CUDA occupancy
+    item 24; the emission at e1m1 scale's 408 items and 736 segs) and
+    the blocks an SM then holds (the CUDA occupancy
     calculator).  Any spill fails the run."""
     import re
 
@@ -2322,7 +2487,11 @@ def resource_report(s: Smoke, libs) -> dict:
 
     phase("resources of every kernel library")
     H, KM, KC, KI = 200, 40, 64, 24
-    p, it, ip, sc = s.paint, s.items, s.itempass, s.scan
+    # the emission at e1m1 scale: every item selected (215 map objects,
+    # 193 drawable mids), 736 segs
+    N, G = 408, 736
+    p, it, ip, sc, em = s.paint, s.items, s.itempass, s.scan, s.emit
+    e_threads, e_table = em.emit_block(320, N, KI, G)
     launch = {
         "paint": (lambda: p.paint_smem_bytes(*p.paint_tile(H), H),
                   lambda lib: p.paint_blocks_per_sm(H, lib=lib)),
@@ -2336,6 +2505,8 @@ def resource_report(s: Smoke, libs) -> dict:
         "scan": (lambda: 0, lambda lib: sc.scan_blocks_per_sm(lib=lib)),
         "resolve": (lambda: s.resolve.resolve_smem_bytes(H),
                     lambda lib: s.resolve.resolve_blocks_per_sm(H)),
+        "emit": (lambda: em.emit_smem_bytes(e_threads, N, KI, G, e_table),
+                 lambda lib: em.emit_blocks_per_sm(320, N, KI, G)),
     }
     report = {}
     for name in libs:
@@ -2586,7 +2757,9 @@ def trace_report(out_path: str, n: int = 2048, ticks: int = 32) -> int:
     cameras walking, pools calibrated on the states rendered, on the
     paint, the scan and the item-pass pipeline.  For each: the sync
     census of one tick and one render (`sync_census`), every warning
-    inside a doom.sync range; on the item pass, its launches a render
+    inside a doom.sync range; the emission kernel's launches a render
+    and a rollout tick (1 on paint and scan, 0 on the item pass); on the
+    item pass, its launches a render
     and whether it takes a batch of 4096 (`frame.itempass_available`);
     the spans a tick; the cost of a span outside a profiler; and
     one profiled episode with the program's spans and without them, in
@@ -2601,6 +2774,7 @@ def trace_report(out_path: str, n: int = 2048, ticks: int = 32) -> int:
     from doomtpu_torch import trace
     from doomtpu_torch.config import RenderConfig
     from doomtpu_torch.engine import DoomEngine
+    from doomtpu_torch.ops.emit import emit
     from doomtpu_torch.ops.itempass import item_pass
     from doomtpu_torch.render import frame
     from doomtpu_torch.sim import player
@@ -2680,11 +2854,25 @@ def trace_report(out_path: str, n: int = 2048, ticks: int = 32) -> int:
                 f"{r['itempass_available_4096']}")
             ok &= (r["item_pass_launches_a_render"] == 1
                    and r["itempass_available_4096"])
+        # the emission kernel: once a render and once a rollout tick on
+        # the deferred pass (paint, scan), never with the item pass
+        want = 0 if cfg.use_item_pass_kernel else 1
+        n0 = emit.launches
+        eng.render(s1)
+        torch.cuda.synchronize()
+        r["emit_launches_a_render"] = emit.launches - n0
         # spans a tick of a rollout, by name, and the episode timed
         two = lambda: eng.rollout(s0, controls[:2], draws=draws[:2],
                                   return_frames=True)
+        n0 = emit.launches
         two()
         torch.cuda.synchronize()
+        r["emit_launches_a_tick"] = (emit.launches - n0) / 2
+        log(f"{pipeline}: emission launches a render "
+            f"{r['emit_launches_a_render']}, a tick "
+            f"{r['emit_launches_a_tick']} (want {want} each)")
+        ok &= (r["emit_launches_a_render"] == want
+               and r["emit_launches_a_tick"] == want)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             two()
             torch.cuda.synchronize()
@@ -2771,7 +2959,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    libs = ("paint", "items", "scan", "itempass", "resolve", *build.VARIANTS)
+    libs = ("paint", "items", "scan", "itempass", "resolve", "emit",
+            *build.VARIANTS)
     t0 = time.perf_counter()
     build.build_libraries(*libs, *PROBE_LIBS)
     for name in (*libs, *PROBE_LIBS):
@@ -2805,6 +2994,11 @@ def main() -> int:
         f"demo B=8 span_capacity={k}") for k in (16, 4))
     err["itempass"] = s.check_itempass(
         demo, demo_st, RenderConfig(use_item_pass_kernel=True), "demo B=8")
+    # the emission at item capacity 1 (every column past it overflows),
+    # 8 and 24
+    err["emit"] = max(s.check_emit(
+        demo, demo_st, RenderConfig(item_capacity=ki),
+        f"demo B=8 item_capacity={ki}") for ki in (1, 8, 24))
 
     cfg = RenderConfig(width=320, height=200, mid_capacity=40,
                        clip_capacity=64, item_capacity=24)
@@ -2816,6 +3010,10 @@ def main() -> int:
                        s.compare_paint(e1, args32, "e1m1-scale B=32")[0])
     err["items"] = max(err["items"],
                        s.check_items(e1, st32, cfg, "e1m1-scale B=32"))
+    err["emit"] = max([err["emit"]] + [s.check_emit(
+        e1, st32, dataclasses.replace(cfg, span_capacity=96),
+        "e1m1-scale B=32", pipeline) for pipeline in (
+            "paint", "paint-bwk", "scan")])
     # the item pass draws the items a capped item pool drops
     err["itempass"] = max(err["itempass"], s.check_itempass(
         e1, st32, dataclasses.replace(cfg, item_capacity=8),
@@ -2885,6 +3083,8 @@ def main() -> int:
             eng_s, s.stage_inputs(eng_s, st_s)[2], f"demo {w}x{h} B=8")[0])
         err["items"] = max(err["items"], s.check_items(
             eng_s, st_s, cfg_s, f"demo {w}x{h} B=8", variants=True))
+        err["emit"] = max(err["emit"], s.check_emit(
+            eng_s, st_s, cfg_s, f"demo {w}x{h} B=8"))
         err["scan"] = max(err["scan"], s.check_scan(
             eng_s, st_s, dataclasses.replace(cfg_s, span_capacity=32),
             f"demo {w}x{h} B=8 span_capacity=32"))
@@ -2953,6 +3153,10 @@ def main() -> int:
         row("resolve", "doomtpu_torch/ops/csrc/resolve.cu",
             "none (doomtpu/render/resolve.py:85, XLA)", r_scan["resolve"],
             max(err["resolve"], r_scan["resolve"]["max_abs_err"])),
+        row("emit", "doomtpu_torch/ops/csrc/emit.cu",
+            "none (doomtpu/render/things.py item_pool, XLA)",
+            r_paint["emit"], max(err["emit"], r_paint["emit"]["max_abs_err"],
+                                 r_scan["emit_err"])),
         *[dict(row(name, f"doomtpu_torch/ops/csrc/{src}.cu", replaces,
                    r_probes[name], r_probes[name]["max_abs_err"]),
                library_ms=r_probes[name].get("library_ms"),

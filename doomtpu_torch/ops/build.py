@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface (the five kernels include
+Each `csrc/<name>.cu` has a plain C interface (the six kernels include
 the shared `csrc/layout.cuh`; the Hopper probes' `probe_visit.cu` and
 `probe_ybounds.cu` stand alone); a library of `VARIANTS` is a source
 built with extra defines (the paint kernel's cost-probe levels).  At
@@ -45,6 +45,7 @@ _C = ctypes
 _P = _C.c_void_p
 _I = _C.c_int
 _F = _C.c_float
+_L = _C.c_longlong
 # argtypes of every exported function, by library
 _SIGNATURES = {
     "paint": {
@@ -94,6 +95,20 @@ _SIGNATURES = {
         ),
         "doom_itempass_error_string": ([_I], _C.c_char_p),
         "doom_itempass_blocks_per_sm": ([_I, _I, _I, _I, _I], _I),
+    },
+    "emit": {
+        "doom_emit": (
+            [_P, _P, _I]                        # item packs i, f; N
+            + [_P] * 8                          # mid span d1..d6, mid cnt
+            + [_L, _L, _L, _I]                  # mid strides b k w, KM
+            + [_I] * 8                          # B W H KI G T spr0 PW
+            + [_I, _I]                          # threads, table
+            + [_P] * 5,                         # pool icnt overflow peak
+            #                                     stream
+            _I,
+        ),
+        "doom_emit_error_string": ([_I], _C.c_char_p),
+        "doom_emit_blocks_per_sm": ([_I] * 5, _I),
     },
     "scan": {
         "doom_scan": (

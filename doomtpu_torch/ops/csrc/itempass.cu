@@ -80,13 +80,7 @@ constexpr int MAX_THREADS = 512;
 constexpr int PIC = 128;   // the JAX kernel's 128 x 128 picture tables
 constexpr int S = 16;      // items a round (ops/itempass.py ROUND_ITEMS)
 
-// item pack rows (ops/itempass.py IPI_* / IPF_*)
-constexpr int IPI_FL = 0, IPI_X0 = 1, IPI_X1E = 2, IPI_LW = 3, IPI_PIC = 4;
-constexpr int IPI_TH = 5, IPI_SOFF = 6, IPI_BSX = 7, IPI_ROWS = 8;
-constexpr int IPF_DX = 0, IPF_INV0 = 1, IPF_INV1 = 2, IPF_Z0 = 3;
-constexpr int IPF_Z1 = 4, IPF_YBS = 5, IPF_YBD = 6, IPF_YTS = 7;
-constexpr int IPF_YTD = 8, IPF_UY1 = 9, IPF_VPX = 10, IPF_VPY = 11;
-constexpr int IPF_ROWS = 12;
+// the item pack's rows: layout.cuh (ops/itempass.py IPI_* / IPF_*)
 constexpr int PACK = IPI_ROWS + IPF_ROWS;   // staged words an item
 
 // terms of an (item, column) pair, each [S][TC]
@@ -116,8 +110,9 @@ struct Params {
 };
 
 // The terms of list slot j at column x (phase 2): the sprite's billboard
-// column and its clip over the staged records, or the mid's draw words;
-// then the rows, the picture's atlas column and the ld word.
+// column (layout.cuh billboard_column, shared with the emission kernel)
+// and its clip over the staged records, or the mid's draw words; then
+// the rows, the picture's atlas column and the ld word.
 __device__ void item_terms(const Params& p, int b, int x, const int* ir,
                            const float* fr, const int* recs,
                            const int* mkey, int ccnt, int mcnt, int* t) {
@@ -128,19 +123,11 @@ __device__ void item_terms(const Params& p, int b, int x, const int* ir,
   int ct, cb, by, ty, tx, offy, th, light, zd;
   float uy1;
   if (fl & 2) {
-    const float xb = (float)wsub(x, ir[IPI_BSX]);
-    const float ax = __fdiv_rn(xb, fr[IPF_DX]);
-    const float oma = __fsub_rn(1.0f, ax);
-    const float denom = __fadd_rn(__fmul_rn(oma, fr[IPF_INV0]),
-                                  __fmul_rn(ax, fr[IPF_INV1]));
-    const float u = __fdiv_rn(__fadd_rn(__fmul_rn(oma, fr[IPF_Z0]),
-                                        __fmul_rn(ax, fr[IPF_Z1])),
-                              denom);
-    const int lw = ir[IPI_LW];
-    tx = wrap_tex(as_i16(u) + soff, max(lw >> 16, 1), 0);
-    zd = as_i16(__fdiv_rn(__fadd_rn(oma, ax), denom));
-    by = as_i16(__fadd_rn(fr[IPF_YBS], __fmul_rn(xb, fr[IPF_YBD])));
-    ty = as_i16(__fadd_rn(fr[IPF_YTS], __fmul_rn(xb, fr[IPF_YTD])));
+    const BillboardColumn bc = billboard_column(x, ir, fr);
+    tx = bc.tx;
+    zd = bc.zd;
+    by = bc.by;
+    ty = bc.ty;
     const float vx = fr[IPF_VPX], vy = fr[IPF_VPY];
     int tsc = -1, bsc = H;
     const int* r = recs;
@@ -156,7 +143,7 @@ __device__ void item_terms(const Params& p, int b, int x, const int* ir,
     cb = min(min(H - 1, by), bsc);
     offy = 0;
     th = ir[IPI_TH];
-    light = lw & 0xFFFF;
+    light = ir[IPI_LW] & 0xFFFF;
     uy1 = fr[IPF_UY1];
   } else {
     // the mid's draw data: the last record of its seg in the mid pool

@@ -1,9 +1,11 @@
 // Word layouts and device helpers shared by the kernels: paint.cu,
-// scan.cu, items.cu and itempass.cu.  Mirrors doomtpu_torch/ops/layout.py:
-// the span record of the pools and the seg row the paint and wall-scan
-// kernels read (those two libraries export doom_row_words() = NR, which
-// ops/build.py checks against the Python NR when it loads them); the
-// item kernels' staged clip record and shade.
+// scan.cu, items.cu, itempass.cu, emit.cu and resolve.cu.  Mirrors
+// doomtpu_torch/ops/layout.py: the span record of the pools and the seg
+// row the paint and wall-scan kernels read (those two libraries export
+// doom_row_words() = NR, which ops/build.py checks against the Python NR
+// when it loads them); the item kernels' staged clip record and shade;
+// the item pack (ops/itempass.py IPI_* / IPF_*) and a sprite's billboard
+// column math, which the item-pass and emission kernels share.
 
 #pragma once
 
@@ -126,6 +128,43 @@ __device__ __forceinline__ int shade_rgb(int rgbw, int ld, float inv_255) {
     packed |= ((int)byte) << shift;
   }
   return packed;
+}
+
+// The item pack (ops/itempass.py IPI_* / IPF_*, render/things.py
+// item_pack): per selected item of a camera, IPI_ROWS i32 words and
+// IPF_ROWS f32 words.
+constexpr int IPI_FL = 0, IPI_X0 = 1, IPI_X1E = 2, IPI_LW = 3, IPI_PIC = 4;
+constexpr int IPI_TH = 5, IPI_SOFF = 6, IPI_BSX = 7, IPI_ROWS = 8;
+constexpr int IPF_DX = 0, IPF_INV0 = 1, IPF_INV1 = 2, IPF_Z0 = 3;
+constexpr int IPF_Z1 = 4, IPF_YBS = 5, IPF_YBD = 6, IPF_YTS = 7;
+constexpr int IPF_YTD = 8, IPF_UY1 = 9, IPF_VPX = 10, IPF_VPY = 11;
+constexpr int IPF_ROWS = 12;
+
+// A sprite's billboard at screen column x (map_objects.rs:37-121, the
+// JAX package's per-slot sprite math): texel column tx, zdist zd, and
+// the unclipped bottom and top rows by, ty.  ir / fr are the sprite's
+// pack words.  Compiled with -fmad=false; every parity-critical product,
+// sum and quotient is an explicitly rounded __f*_rn.
+struct BillboardColumn {
+  int tx, zd, by, ty;
+};
+
+__device__ __forceinline__ BillboardColumn billboard_column(
+    int x, const int* ir, const float* fr) {
+  BillboardColumn c;
+  const float xb = (float)wsub(x, ir[IPI_BSX]);
+  const float ax = __fdiv_rn(xb, fr[IPF_DX]);
+  const float oma = __fsub_rn(1.0f, ax);
+  const float denom = __fadd_rn(__fmul_rn(oma, fr[IPF_INV0]),
+                                __fmul_rn(ax, fr[IPF_INV1]));
+  const float u = __fdiv_rn(__fadd_rn(__fmul_rn(oma, fr[IPF_Z0]),
+                                      __fmul_rn(ax, fr[IPF_Z1])),
+                            denom);
+  c.tx = wrap_tex(as_i16(u) + ir[IPI_SOFF], max(ir[IPI_LW] >> 16, 1), 0);
+  c.zd = as_i16(__fdiv_rn(__fadd_rn(oma, ax), denom));
+  c.by = as_i16(__fadd_rn(fr[IPF_YBS], __fmul_rn(xb, fr[IPF_YBD])));
+  c.ty = as_i16(__fadd_rn(fr[IPF_YTS], __fmul_rn(xb, fr[IPF_YTD])));
+  return c;
 }
 
 }  // namespace

@@ -11,10 +11,11 @@ stages and their arithmetic are the JAX package's:
 1. per-item scalars [B, I], I = mobjs + drawable mids: billboard
    projection and painter keys (renderer/map_objects.rs:37-121);
 2. the nearest max_visible_mobjs items in painter order are selected;
-   the rest count in items_dropped;
-3. presence [B, N, W] per selected item and column; each column's
-   present items fill its item pool [B, KI, W] nearest first, so a full
-   column drops its farthest items (counted in item_overflow);
+   the rest count in items_dropped; the selected items' per-item packs
+   (`item_pack`'s, made once for both passes);
+3. presence per selected item and column; each column's present items
+   fill its item pool [B, KI, W] nearest first, so a full column drops
+   its farthest items (counted in item_overflow);
 4. per-slot sprite column math, and mid slots filled from the mid
    pool;
 5. the item kernel (ops/items.py) clips sprite slots against the clip
@@ -22,10 +23,9 @@ stages and their arithmetic are the JAX package's:
 
 The JAX package gathers per-slot values with one-hot MXU contractions
 ([B, I, N] for the selection, [B, W, N, KI] for the emission); here the
-same values come from exact index operations: a stable sort for the
-selection, a scatter of item ids into a slot -> item table for the
-emission and a scatter of mid-pool slot ids for the mid fill.  Stages
-1-4 and the item kernel each run once over the whole batch.
+selection is a stable sort, and stages 3-4 are ops/emit.py: one CUDA
+kernel on the card (csrc/emit.cu), exact index operations in its plain
+version.  Each stage runs once over the whole batch.
 
 The item pool is slot-major, [B, KI, W] per plane, the item kernel's
 layout.  Its planes: word (ct+1 | cb+1 << 16 | marks), atlas column,
@@ -41,15 +41,14 @@ import numpy as np
 import torch
 
 from doomtpu_torch.config import PLAYER_EYE_HEIGHT, RenderConfig
-from doomtpu_torch.ops.items import (
-    ITEM_PLANES, SPR_MARK, composite_items, is_behind_vertex,
-)
+from doomtpu_torch.ops.emit import emit
+from doomtpu_torch.ops.items import composite_items, is_behind_vertex
 from doomtpu_torch.ops.itempass import (
     IPF_DX, IPF_INV0, IPF_INV1, IPF_ROWS, IPF_UY1, IPF_VPX, IPF_VPY,
     IPF_YBD, IPF_YBS, IPF_YTD, IPF_YTS, IPF_Z0, IPF_Z1, IPI_BSX, IPI_FL,
     IPI_LW, IPI_PIC, IPI_ROWS, IPI_SOFF, IPI_TH, IPI_X0, IPI_X1E,
 )
-from doomtpu_torch.ops.layout import KIND_MID, pack16
+from doomtpu_torch.ops.layout import KIND_MID
 from doomtpu_torch.ops.paint import LIVE_BLOCK
 # re-exported: the JAX package's things.py holds pools_from_paint
 from doomtpu_torch.ops.paint import pools_from_paint  # noqa: F401
@@ -57,7 +56,7 @@ from doomtpu_torch.render import camera as cam
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, fdiv, reciprocal, rotate, smul, sqrt,
-    stable_positions, wrap_tex,
+    stable_positions,
 )
 from doomtpu_torch.trace import span, spanned
 
@@ -267,25 +266,17 @@ def _select_items(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     return out
 
 
-@spanned("doom.itempass")
-def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
-              px, py, angle, floor_height, sector_light, mobj_state):
-    """The item-pass kernel's per-item packs (JAX things.item_pack).
-
-    Returns ({"i": [B, N, IPI_ROWS] i32, "f": [B, N, IPF_ROWS] f32},
-    aux), or (None, aux) when the level has no items; aux counts
-    items_dropped (beyond max_visible_mobjs) and item_overflow (0: the
-    item pass has no per-column cap).  Items are in painter order,
-    farthest first, so painting them in index order with nearer items
-    overwriting is the reference's back-to-front painter
-    (map_objects.rs:216-240)."""
+def _item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
+               px, py, angle, floor_height, sector_light, mobj_state):
+    """The selection and the per-item packs, in no span: the code that
+    `item_pack` (the item pass) and `item_pool` (the deferred pass) share.
+    Returns (pack, items_dropped [B]), or (None, None) when the level has
+    no items."""
     B, dev = px.shape[0], px.device
-    zero_aux = {"items_dropped": torch.zeros((B,), dtype=I32, device=dev),
-                "item_overflow": torch.zeros((B,), dtype=I32, device=dev)}
     s = _select_items(level, cfg, frame, order, px, py, angle, floor_height,
                       sector_light, mobj_state)
     if s is None:
-        return None, zero_aux
+        return None, None
     N = s["N"]
     sel_valid, is_spr = s["sel_valid"], s["is_spr_sel"]
     zero = torch.zeros((B, N), dtype=I32, device=dev)
@@ -338,7 +329,30 @@ def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     pack = {"i": torch.stack(rows_i, -1).contiguous(),
             "f": torch.stack([spr_f[r] for r in range(IPF_ROWS)],
                              -1).contiguous()}
-    return pack, dict(zero_aux, items_dropped=s["items_dropped"])
+    return pack, s["items_dropped"]
+
+
+@spanned("doom.itempass")
+def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
+              px, py, angle, floor_height, sector_light, mobj_state):
+    """The item-pass kernel's per-item packs (JAX things.item_pack).
+
+    Returns ({"i": [B, N, IPI_ROWS] i32, "f": [B, N, IPF_ROWS] f32},
+    aux), or (None, aux) when the level has no items; aux counts
+    items_dropped (beyond max_visible_mobjs) and item_overflow (0: the
+    item pass has no per-column cap).  Items are in painter order,
+    farthest first, so painting them in index order with nearer items
+    overwriting is the reference's back-to-front painter
+    (map_objects.rs:216-240).  The deferred pass's `item_pool` emits its
+    item pool from the same pack (`_item_pack`)."""
+    B, dev = px.shape[0], px.device
+    zero_aux = {"items_dropped": torch.zeros((B,), dtype=I32, device=dev),
+                "item_overflow": torch.zeros((B,), dtype=I32, device=dev)}
+    pack, dropped = _item_pack(level, cfg, frame, order, px, py, angle,
+                               floor_height, sector_light, mobj_state)
+    if pack is None:
+        return None, zero_aux
+    return pack, dict(zero_aux, items_dropped=dropped)
 
 
 def item_census(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
@@ -425,141 +439,23 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
     ipool is None when the level has no items.  daux counts
     items_dropped and item_overflow per camera, and item_peak is each
     camera's largest uncapped column occupancy (the item_capacity that
-    would drop nothing)."""
-    _, midp = pools
+    would drop nothing).
+
+    The selection and the per-item packs are item_pack's (`_item_pack`);
+    ops/emit.py::emit emits the pool from them and the mid pool: the
+    emission kernel on CUDA tensors, its plain version on CPU tensors."""
     B, dev = px.shape[0], px.device
     daux = {"item_block_dropped": torch.zeros((), dtype=I32, device=dev)}
     if level.num_mobjs + level.dseg_ix.shape[0] == 0:
         for k in ("items_dropped", "item_overflow", "item_peak"):
             daux[k] = torch.zeros((B,), dtype=I32, device=dev)
         return None, None, daux
-    W, H, KI = cfg.width, cfg.height, cfg.item_capacity
-    G, MO = level.num_segs, level.num_mobjs
-    D = level.dseg_ix.shape[0]
-    s = _select_items(level, cfg, frame, order, px, py, angle, floor_height,
-                      sector_light, mobj_state)
-    N = s["N"]
-    sel_valid, is_spr_sel = s["sel_valid"], s["is_spr_sel"]
-    xcol = torch.arange(W, dtype=I32, device=dev)
-
-    # ---- presence [B, N, W] -------------------------------------------
-    pres = torch.zeros((B, N + 1, W), dtype=torch.bool, device=dev)
-    if MO > 0:
-        sp = s["spr"]
-        x0i, x1i = as_i16(sp["bsx"]), as_i16(sp["bex"])       # x1 exclusive
-        pres[:, :N] = ((xcol >= x0i[..., None]) & (xcol < x1i[..., None])
-                       & is_spr_sel[..., None])
-    m_span, m_d6 = midp["span"], midp["d6"]                  # [B, KM, W]
-    KM = m_span.shape[1]
-    k_iota = torch.arange(KM, dtype=I32, device=dev)[None, :, None]
-    mid_slot = (((m_span >> 29) & 3) == KIND_MID) & (
-        k_iota < midp["cnt"][:, None, :])
-    if D > 0:
-        # seg -> selected mid item; each valid mid-pool entry then marks
-        # its item present in its column (item n present iff some valid
-        # mid-pool slot of the column holds segsel[n])
-        want = ~is_spr_sel & sel_valid
-        seg_to_n = torch.full((B, G + 1), -1, dtype=I32, device=dev)
-        seg_to_n.scatter_(
-            1, torch.where(want, s["segsel"], G).long(),
-            torch.arange(N, dtype=I32, device=dev)[None].expand(B, N),
-        )
-        seg_to_n[:, G] = -1
-        n_e = torch.gather(
-            seg_to_n, 1, torch.where(mid_slot, m_d6, G).reshape(B, -1).long()
-        ).reshape(B, KM, W)                                   # [B, KM, W]
-        pres.scatter_(1, torch.where(n_e >= 0, n_e, N).long(), True)
-    pres = pres[:, :N] & sel_valid[..., None]
-
-    # ---- emission: nearest item first (slot 0) -------------------------
-    rc = torch.flip(torch.cumsum(torch.flip(pres, [1]), 1, dtype=I32), [1])
-    fits = rc <= KI
-    item_overflow = (pres & ~fits).sum((1, 2), dtype=I32)
-    item_peak = rc[:, 0].amax(1)
-    icnt = torch.clamp(rc[:, 0], max=KI)
-    slot_of = torch.where(pres & fits, rc - 1, KI).long()      # [B, N, W]
-    tab = torch.full((B, KI + 1, W), -1, dtype=I32, device=dev)
-    tab.scatter_(1, slot_of,
-                 torch.arange(N, dtype=I32, device=dev)[None, :, None]
-                 .expand(B, N, W))
-    tab = tab[:, :KI]                                         # [B, KI, W]
-    used = tab >= 0
-    n_ix = torch.clamp(tab, min=0).reshape(B, KI * W).long()
-
-    def per_slot(x):
-        """[B, N] per-item values -> [B, KI, W] per pool slot."""
-        return torch.gather(x, 1, n_ix).reshape(B, KI, W)
-
-    zero_s = torch.zeros((B, KI, W), dtype=I32, device=dev)
-    is_spr_slot = per_slot(is_spr_sel) & used
-    planes = [zero_s] * ITEM_PLANES
-
-    # ---- sprite per-slot column math ------------------------------------
-    if MO > 0:
-        one = 1.0
-        with span("doom.sync"):  # fdiv uploads 1.0, 0.0: each waits
-            inv0, inv1 = fdiv(one, sp["lsx"]), fdiv(one, sp["lex"])
-            z0 = fdiv(0.0, sp["lsx"])
-        f = {
-            "bsx": sp["bsx"], "dxi": sp["bex"] - sp["bsx"],
-            "inv0": inv0, "inv1": inv1,
-            "z0": z0, "z1": fdiv(sp["slen"], sp["lex"]),
-            "soffi": as_i16(sp["start_off"]), "wpic": sp["w_pic"],
-            "pic": sp["pic_s"], "th": level.spr_h[sp["pic_s"].long()],
-            "light": sp["light_m"],
-            "ybs": sp["yb_s"].to(F32), "ybd": sp["yb_d"],
-            "yts": sp["yt_s"].to(F32), "ytd": sp["yt_d"],
-            "uy1": sp["uy1"], "vpx": sp["vpx"], "vpy": sp["vpy"],
-        }
-        sc = {k: per_slot(v) for k, v in f.items()}
-        xw = xcol[None, None]                                 # [1, 1, W]
-        ax = fdiv((xw - sc["bsx"]).to(F32), sc["dxi"].to(F32))
-        denom = smul(one - ax, sc["inv0"]) + smul(ax, sc["inv1"])
-        u = fdiv(smul(one - ax, sc["z0"]) + smul(ax, sc["z1"]), denom)
-        s_tx = wrap_tex(as_i16(u) + sc["soffi"],
-                        torch.clamp(sc["wpic"], min=1))
-        s_zd = as_i16(fdiv((one - ax) + ax, denom))
-        xbf = (xw - sc["bsx"]).to(F32)
-        s_by = as_i16(sc["ybs"] + smul(xbf, sc["ybd"]))
-        s_ty = as_i16(sc["yts"] + smul(xbf, sc["ytd"]))
-        # the screen clamp only: the item kernel applies the seg clip.
-        # The upper clamp to H keeps ct+1 inside the word's 9-bit field
-        # (ct == H draws nothing, like any ct > H)
-        s_ct = torch.clamp(torch.clamp(s_ty, min=0), max=H)
-        s_cb = torch.clamp(s_by, max=H - 1)
-        spr_planes = [
-            pack16(s_ct + 1, s_cb + 1) | SPR_MARK,
-            level.col_spr_off + sc["pic"] * level.spr_pw + s_tx,
-            pack16(s_by, s_ty),
-            pack16(zero_s, sc["th"]),
-            pack16(sc["light"], s_zd),
-            sc["uy1"].view(I32), sc["vpx"].view(I32), sc["vpy"].view(I32),
-        ]
-        planes = [torch.where(is_spr_slot, p, 0) for p in spr_planes]
-
-    # ---- mid slots: filled from the mid pool -----------------------------
-    if D > 0:
-        # the pool slot each valid mid-pool entry's item took in its
-        # column; the last (largest k) matching entry wins, as in JAX
-        ok_e = n_e >= 0
-        slot_e = torch.gather(rc, 1, torch.clamp(n_e, min=0).long()) - 1
-        src = torch.full((B, KI + 1, W), -1, dtype=I32, device=dev)
-        src.scatter_reduce_(
-            1, torch.where(ok_e & (slot_e < KI), slot_e, KI).long(),
-            k_iota.expand(B, KM, W), "amax",
-        )
-        src = src[:, :KI]
-        is_mid_slot = used & ~is_spr_slot & (src >= 0)
-        k_ix = torch.clamp(src, min=0).long()
-        take = lambda p: torch.gather(p, 1, k_ix)
-        w_new = pack16((m_span >> 8) & 255, m_span & 255)
-        mid_planes = [w_new] + [midp[k] for k in ("d1", "d2", "d3", "d4", "d5")]
-        for i, p in enumerate(mid_planes):
-            planes[i] = torch.where(is_mid_slot, take(p), planes[i])
-    daux["items_dropped"] = s["items_dropped"]
-    daux["item_overflow"] = item_overflow
-    daux["item_peak"] = item_peak
-    return torch.stack(planes), icnt, daux
+    pack, daux["items_dropped"] = _item_pack(
+        level, cfg, frame, order, px, py, angle, floor_height, sector_light,
+        mobj_state)
+    ipool, icnt, daux["item_overflow"], daux["item_peak"] = emit(
+        level, cfg, pack, pools[1])
+    return ipool, icnt, daux
 
 
 @spanned("doom.deferred")

@@ -1,5 +1,5 @@
-"""Tests that need a CUDA card: the paint, item, item-pass, wall-scan and
-resolve kernels against their plain PyTorch versions (on tall and wide
+"""Tests that need a CUDA card: the paint, item, item-pass, emission,
+wall-scan and resolve kernels against their plain PyTorch versions (on tall and wide
 screens too, the paint kernel under a live-seg cap that drops segs, the
 resolve under a sky with transparent texels and on hand-made pools), the
 Hopper probes P1-P4 against theirs (every construct at both launch
@@ -30,6 +30,7 @@ from chip_smoke import sky_masked, tall_atlas  # noqa: E402
 from doomtpu_torch.wad import synth  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.config import RenderConfig  # noqa: E402
+from doomtpu_torch.ops import emit as kem  # noqa: E402
 from doomtpu_torch.ops import itempass as tip  # noqa: E402
 from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
@@ -301,6 +302,102 @@ def test_itempass_kernel_equals_plain_version(engines):
     assert int((got[0] != out["idx"]).sum()) > 100
 
 
+EMIT_CASES = ["demo-KI1", "demo-KI8", "demo-KI24", "e1m1-paint",
+              "e1m1-paint-bwk", "e1m1-scan", "e1m1-paint-t64",
+              "e1m1-paint-notable"]
+
+
+@pytest.mark.parametrize("case", EMIT_CASES)
+def test_emit_kernel_equals_plain_version(cuda, case, monkeypatch):
+    """The deferred pass's emission (ops/emit.py) through the kernel and
+    through its plain version, every plane of the pool, icnt,
+    item_overflow and item_peak: the demo map at B=8 on the paint
+    path's mid pool at item capacity 1 (overflowing), 8 and 24;
+    e1m1-scale at B=32 on the paint path's mid pool, on the same pool
+    laid out as the JAX package's [B, W, K] store and read through its
+    strides ("-bwk"), on the scan path's unified pool, and in blocks
+    that emit_block picks only elsewhere: 64 threads (the columns in
+    five passes) and no seg -> item table (each seg looked up by a walk
+    of the pack, the fallback for levels whose table does not fit)."""
+    block = {"t64": (64, True), "notable": (320, False)}.get(
+        case.rsplit("-", 1)[1])
+    if block is not None:
+        monkeypatch.setattr(kem, "emit_block", lambda *a: block)
+    if case.startswith("demo"):
+        cfg = RenderConfig(item_capacity=int(case.split("KI")[1]),
+                           use_pallas_paint=True)
+        eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", config=cfg,
+                                        device=cuda)
+        views = VIEWS * 2
+        st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
+                    np.asarray([v[2] for v in views], np.float32))
+    else:
+        cfg = RenderConfig(width=320, height=200, mid_capacity=40,
+                           clip_capacity=64, item_capacity=24,
+                           span_capacity=96, use_pallas_paint=True)
+        eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                        config=cfg, device=cuda)
+        st = _state(eng, *_spread(eng.tables, 32))
+    lvl = eng.level
+    px, py = st.pos[:, 0], st.pos[:, 1]
+    frame = cam.build_seg_frame(lvl, cfg, px, py, st.angle, st.floor_height,
+                                st.sector_light, st.timestamp)
+    order = cam.seg_order(lvl, cam.traversal_rank(lvl, px, py))
+    if case.endswith("scan"):
+        pool, cnt, _ = walls.wall_scan(lvl, cfg, frame, order)
+        mid = things.pools_from_unified(pool, cnt, frame)[1]
+    else:
+        out = tp.render_paint(lvl, cfg, frame, order, st.angle, px, py,
+                              st.floor_height)
+        mid = things.pools_from_paint(out)[1]
+    if case.endswith("bwk"):
+        bwk = lambda p: p.transpose(1, 2).contiguous().transpose(1, 2)
+        mid = {k: v if k == "cnt" else bwk(v) for k, v in mid.items()}
+        assert not mid["span"].is_contiguous()
+    pack, _ = things.item_pack(lvl, cfg, frame, order, px, py, st.angle,
+                               st.floor_height, st.sector_light,
+                               st.mobj_state)
+    before = kem.emit.launches
+    got = kem.emit(lvl, cfg, pack, mid)
+    torch.cuda.synchronize()
+    assert kem.emit.launches == before + 1
+    want = kem.emit_reference(lvl, cfg, pack, mid)
+    names = [f"plane{i}" for i in range(ti.ITEM_PLANES)]
+    for name, g, w in zip(names + ["icnt", "item_overflow", "item_peak"],
+                          [*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert g.is_cuda and g.dtype == w.dtype, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+    ipool, icnt, overflow, peak = got
+    assert int(icnt.max()) > 0
+    assert bool(((ipool[0] & ti.SPR_MARK) != 0).any())      # sprite slots
+    assert bool(((ipool[0] != 0) & ((ipool[0] & ti.SPR_MARK) == 0)).any()) \
+        or case.startswith("demo")                          # mid slots
+    assert (int(overflow.sum()) > 0) == (int(peak.max()) > cfg.item_capacity)
+    if case == "demo-KI1":
+        assert int(overflow.sum()) > 0
+
+
+def test_emit_launches_once_a_deferred_pass(engines):
+    """A render launches the emission kernel once on the paint path and
+    on the scan path (the deferred pass), never with the item pass."""
+    eng, _ = engines
+    views = VIEWS * 2
+    pos = np.asarray([v[:2] for v in views], np.float32)
+    ang = np.asarray([v[2] for v in views], np.float32)
+    for cfg, want in ((eng.config, 1),
+                      (dataclasses.replace(eng.config,
+                                           use_pallas_paint=False), 1),
+                      (dataclasses.replace(eng.config,
+                                           use_item_pass_kernel=True), 0)):
+        e = dataclasses.replace(eng, config=cfg)
+        st = _state(e, pos, ang)
+        before = (kem.emit.launches, tip.item_pass.launches)
+        e.render(st)
+        torch.cuda.synchronize()
+        assert kem.emit.launches - before[0] == want, cfg
+        assert tip.item_pass.launches - before[1] == 1 - want, cfg
+
+
 def test_render_walls_on_card_equals_cpu(engines):
     """B=16 spread poses, so the camera sort runs."""
     gpu, cpu = engines
@@ -519,7 +616,7 @@ def test_moving_rollout_on_card_equals_cpu(cuda, pipeline):
     assert stale == stale_cpu
     assert launches["paint" if reuse else "scan"] == 4
     assert launches["resolve"] == (0 if reuse else 4)
-    assert launches["items"] == 4
+    assert launches["items"] == launches["emit"] == 4
     if reuse:
         assert stale > 16 * 3
 

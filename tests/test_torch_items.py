@@ -15,7 +15,11 @@ background frame.  Then:
   as the JAX XLA reductions do);
 - the deferred pass: the port's deferred_pass against the JAX
   deferred_pass (XLA clip reductions and fold, jitted), with every item
-  drawn and with max_visible_mobjs dropping items.
+  drawn and with max_visible_mobjs dropping items;
+- the emission (ops/emit.py): item_pool hands it item_pack's pack, and
+  its wrapper takes the plain version on CPU tensors and raises on a
+  wrong dtype, shape or device (the kernel against the plain version is
+  in tests/test_torch_cuda.py).
 
 Tolerance: exact equality of idx, ld (light / dist / sky), rgb and the
 item counters.
@@ -34,6 +38,8 @@ import jax.numpy as jnp  # noqa: E402
 from doomtpu.render import camera as jcam  # noqa: E402
 from doomtpu.render import things as jthings  # noqa: E402
 from doomtpu.render.device import DeviceLevel as JaxLevel  # noqa: E402
+from doomtpu_torch.ops import emit as te  # noqa: E402
+from doomtpu_torch.ops import itempass as tip  # noqa: E402
 from doomtpu_torch.ops import items as ti  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
 from doomtpu_torch.render import camera as tcam  # noqa: E402
@@ -293,3 +299,77 @@ def test_items_tile_fits_every_height(ki, kc):
         assert 4 * tc * (H + 2 * ki + 5 * kc) <= tp.SMEM_BLOCK_BYTES, H
         assert tc * bands <= ti.MAX_BLOCK_THREADS, H
     assert ti.items_tile(200, ki, kc)[0] >= 32
+
+
+def test_item_pool_emits_from_item_packs_pack(scene, cfg, monkeypatch):
+    """item_pool and item_pack read one pack: the pack the deferred pass
+    hands the emission equals the item pass's, field by field."""
+    _, tl, _, p, frame, order, out = scene
+    cfg = dataclasses.replace(cfg, item_capacity=8)
+    args = (p["px"], p["py"], p["angle"], p["floor_height"],
+            p["sector_light"], p["mobj_state"])
+    seen = []
+
+    def spy(level, cfg_, pack, mid):
+        seen.append(pack)
+        return te.emit(level, cfg_, pack, mid)
+    monkeypatch.setattr(tthings, "emit", spy)
+    pools = tthings.pools_from_paint(out)
+    _, _, daux = tthings.item_pool(tl, cfg, frame, pools, order, *args)
+    pack, aux = tthings.item_pack(tl, cfg, frame, order, *args)
+    assert len(seen) == 1
+    for k, rows in (("i", tip.IPI_ROWS), ("f", tip.IPF_ROWS)):
+        assert seen[0][k].dtype == pack[k].dtype, k
+        bits = lambda t: t.view(torch.int32)        # NaN words compare too
+        for r in range(rows):
+            assert torch.equal(bits(seen[0][k])[..., r],
+                               bits(pack[k])[..., r]), (k, r)
+    assert torch.equal(daux["items_dropped"], aux["items_dropped"])
+    # both kinds of item are in the pack
+    fl = pack["i"][..., 0]
+    assert bool(((fl & 3) == 3).any()) and bool(((fl & 3) == 1).any())
+
+
+def test_emit_takes_plain_version_on_cpu_and_checks(scene, cfg):
+    _, tl, _, p, frame, order, out = scene
+    pack, _ = tthings.item_pack(
+        tl, cfg, frame, order, p["px"], p["py"], p["angle"],
+        p["floor_height"], p["sector_light"], p["mobj_state"])
+    mid = tthings.pools_from_paint(out)[1]
+    before = te.emit.launches
+    got = te.emit(tl, cfg, pack, mid)
+    want = te.emit_reference(tl, cfg, pack, mid)
+    assert te.emit.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    bad = [
+        (dict(pack, i=pack["i"].long()), mid),                     # dtype
+        (dict(pack, f=pack["f"][..., :-1].contiguous()), mid),     # shape
+        (pack, dict(mid, d3=mid["d3"][:, :-1])),                   # shape
+        (pack, dict(mid, cnt=mid["cnt"][:, :-1])),                 # width
+        (pack, dict(mid, span=mid["span"].to("meta"))),            # device
+        ({k: v.to("meta") for k, v in pack.items()},
+         {k: v.to("meta") for k, v in mid.items()}),               # no kernel
+    ]
+    for bp, bm in bad:
+        with pytest.raises(ValueError):
+            te.emit(tl, cfg, bp, bm)
+    assert te.emit.launches == before
+
+
+@pytest.mark.parametrize("W, N, KI, G", [
+    (320, 320, 24, 736), (1024, 320, 24, 736), (32, 64, 1, 1),
+    (320, 320, 24, 60_000), (320, 20_000, 24, 736)])
+def test_emit_block_fits(W, N, KI, G):
+    """The emission block (ops/emit.emit_block): whole warps, within the
+    kernel's threads and the shared memory a Hopper block may use; the
+    seg -> item table where it fits, a warp of columns a thread each at
+    e1m1 scale (320 columns at 320 items, KI 24, 736 segs)."""
+    threads, table = te.emit_block(W, N, KI, G)
+    assert threads % 32 == 0 and 32 <= threads <= te.MAX_BLOCK_THREADS
+    assert te.emit_smem_bytes(threads, N, KI, G, table) <= tp.SMEM_BLOCK_BYTES
+    assert threads <= -(-W // 32) * 32
+    if (W, N, G) == (320, 320, 736):
+        assert (threads, table) == (320, True)
+    if G == 60_000:
+        assert not table
