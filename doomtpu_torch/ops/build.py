@@ -155,11 +155,11 @@ _SIGNATURES = {
     },
 }
 
-# the cost probes' libraries: a kernel source built at a probe level
-# (PAINT_PROBE in csrc/paint.cu, ITEMPASS_PROBE in csrc/itempass.cu,
-# SCAN_PROBE in csrc/scan.cu; the full kernel is the level above the
-# last), by library name -> (source, extra nvcc flags)
-PROBE_LEVELS = {"paint": 3, "itempass": 3, "scan": 2}
+# the cost probe's libraries (P6, scripts/probe_paint_cost.py's port): a
+# kernel source built at a probe level (PAINT_PROBE in csrc/paint.cu;
+# the full kernel is the level above the last), by library name ->
+# (source, extra nvcc flags)
+PROBE_LEVELS = {"paint": 3}
 VARIANTS = {f"{src}_probe{n}": (src, (f"-D{src.upper()}_PROBE={n}",))
             for src, levels in PROBE_LEVELS.items()
             for n in range(1, levels + 1)}

@@ -49,10 +49,11 @@
 // What bounds it on the card: not bytes (2.75 ms against a 0.32 ms byte
 // bound: each (camera, item) pair's first words, the covering items'
 // packs, the records of the columns items cover, 12 B per written
-// pixel) but latency: the cost probe (ITEMPASS_PROBE) gives ~0.6 ms to
-// the list and staging (dependent loads between barriers), ~0.35 to the
-// terms, ~1.4 to the fold (an IEEE divide, an atlas load from L2 and a
-// shared store a row) and ~0.45 to the write.
+// pixel) but latency: a cost probe of the kernel cut after each stage
+// (PERF.md) gave ~0.6 ms to the list and staging (dependent loads
+// between barriers), ~0.35 to the terms, ~1.4 to the fold (an IEEE
+// divide, an atlas load from L2 and a shared store a row) and ~0.45 to
+// the write.
 //
 // Numerics: compiled with -fmad=false, and the parity-critical products
 // use __fmul_rn / __fadd_rn / __fdiv_rn.  The shade multiplies by
@@ -64,14 +65,6 @@
 // Every row loop stays rolled (see paint.cu: nvcc 12.8 for sm_90a drew
 // one row past a span's end with such loops unrolled).
 #define ROLLED _Pragma("unroll 1")
-
-// ITEMPASS_PROBE, set only by the cost probe's libraries (ops/build.py
-// VARIANTS): 1 the list and the staging only; 2 + the (item, column)
-// terms; 3 + the fold into the marks, without the write.  Unset: the
-// full kernel.
-#ifndef ITEMPASS_PROBE
-#define ITEMPASS_PROBE 4
-#endif
 
 namespace {
 
@@ -267,7 +260,6 @@ __global__ void __launch_bounds__(MAX_THREADS) itempass_kernel(Params p) {
         }
       }
       __syncthreads();
-#if ITEMPASS_PROBE >= 2
       // (2) the terms of each (item, column) pair, the items of a column
       // split over its R threads
       ROLLED for (int j = g; j < m; j += R) {
@@ -276,8 +268,6 @@ __global__ void __launch_bounds__(MAX_THREADS) itempass_kernel(Params p) {
                    mkey + c, ccnt, mcnt, terms + j * TC + c);
       }
       __syncthreads();
-#endif
-#if ITEMPASS_PROBE >= 3
       // (3) the round's items in list order over the band's rows
       ROLLED for (int j = 0; j < m; ++j) {
         const int* t = terms + j * TC + c;
@@ -309,8 +299,6 @@ __global__ void __launch_bounds__(MAX_THREADS) itempass_kernel(Params p) {
           if (t1 & 0x100) marks[(y + 1) * TC + c] = mark | (t1 & 0xFF);
         }
       }
-#endif
-#if ITEMPASS_PROBE >= 4
       // (4) shade and store the band's marked pixels
       if (live) {
         const long pix0 = (long)b * H * p.W + x;   // row y at + y * W
@@ -326,7 +314,6 @@ __global__ void __launch_bounds__(MAX_THREADS) itempass_kernel(Params p) {
           if (more) marks[y * TC + c] = 0;
         }
       }
-#endif
       __syncthreads();    // the next round restages pack and terms
     }
   }

@@ -32,11 +32,12 @@
 //
 // What bounds it on the card: not bytes (1.2 ms against a 0.17 ms byte
 // bound: the active rows read once, the counts and the occupied slots'
-// 7 words written once).  The cost probe (SCAN_PROBE; PERF.md, H100,
-// e1m1-scale-masked, 4096 cameras) gives ~0.1 ms to the lists and the
-// staging, ~0.65 to the walk and ~0.5 to the pool stores: the lanes of
-// a warp store at their own columns' cursors, which differ, so a
-// record's 7 stores touch up to 32 lines each.  Buffering a warp's
+// 7 words written once).  A cost probe of the kernel cut after each
+// stage (PERF.md, H100, e1m1-scale-masked, 4096 cameras) gave ~0.1 ms to
+// the lists and the staging, ~0.65 to the walk and ~0.5 to the pool
+// stores: the lanes of a warp store at their own columns' cursors,
+// which differ, so a record's 7 stores touch up to 32 lines each.
+// Buffering a warp's
 // records in shared memory and storing them slot by slot made the
 // stores coalesce but cut the blocks an SM holds, and the walk lost as
 // much as the stores gained.  32 columns a block beat 64-128.
@@ -46,14 +47,6 @@
 // kernel does.
 
 #include "layout.cuh"
-
-// SCAN_PROBE, set only by the cost probe's libraries (ops/build.py
-// VARIANTS): 1 the lists and the staging only; 2 + the walk and the
-// records, folded into a word a column instead of stored in the pool.
-// Unset: the full kernel.
-#ifndef SCAN_PROBE
-#define SCAN_PROBE 3
-#endif
 
 namespace {
 
@@ -90,7 +83,6 @@ struct Column {
   size_t o;          // offset of (b, slot 0, x) in one pool plane
   size_t plane;      // words per pool plane
   int cnt, ovf;
-  int sink = 0;      // SCAN_PROBE 2: the records, folded
 
   __device__ Column(const Params& p, int b, int x) : P(p), cnt(0), ovf(0) {
     o = (size_t)b * P.K * P.W + x;
@@ -103,14 +95,10 @@ struct Column {
       ++ovf;
       return;
     }
-#if SCAN_PROBE == 2
-    sink ^= rec ^ d1 ^ d2 ^ d3 ^ d4 ^ d5 ^ d6;
-#else
     const int vals[POOL_PLANES] = {rec, d1, d2, d3, d4, d5, d6};
     const size_t at = o + (size_t)cnt * P.W;
 #pragma unroll
     for (int i = 0; i < POOL_PLANES; ++i) P.pool[i * plane + at] = vals[i];
-#endif
     ++cnt;
   }
 };
@@ -278,14 +266,12 @@ __global__ void __launch_bounds__(MAX_THREADS) scan_kernel(const Params P) {
         staged[i] = rows_b[(size_t)list[j] * NR + row_word(w)];
     }
     __syncthreads();
-#if SCAN_PROBE >= 2
     for (int j = 0; j < m && !hor; ++j)
       scan_seg(P, staged + j * ROW_WORDS, x, hor, fo, co, c);
-#endif
     if (!more) break;
   }
   if (!live) return;
-  P.cnt[(size_t)b * P.W + x] = c.cnt ^ c.sink;
+  P.cnt[(size_t)b * P.W + x] = c.cnt;
   if (c.ovf) atomicAdd(&P.ovf[b], c.ovf);
 }
 

@@ -46,9 +46,9 @@ from doomtpu_torch.config import RenderConfig
 from doomtpu_torch.ops.items import (
     CLIP_FIELDS, CLIP_RECORD_WORDS, clip_record_bounds, shade_over,
 )
-from doomtpu_torch.ops.layout import KIND_MID
+from doomtpu_torch.ops.layout import KIND_MID, LD_WRITTEN
 from doomtpu_torch.ops.paint import (
-    LD_WRITTEN, SMEM_BLOCK_BYTES, _consts, pools_from_paint,
+    SMEM_BLOCK_BYTES, _consts, pools_from_paint,
 )
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
@@ -159,31 +159,28 @@ def itempass_smem_bytes(tc: int, bands: int, H: int, KC: int,
                  + -(-threads // 32)) + 2 * tc * H)
 
 
-def itempass_tile(H: int, KC: int, KM: int,
-                  band_rows: int = BAND_ROWS) -> tuple[int, int]:
+def itempass_tile(H: int, KC: int, KM: int) -> tuple[int, int]:
     """(TC, R) of an item-pass block at screen height H and clip / mid
     capacities KC / KM: TC columns, 32 while `itempass_smem_bytes` fits
     the SMEM_BLOCK_BYTES a block may use, else as many as fit; R threads
-    a column, each folding a band of about `band_rows` rows."""
+    a column, each folding a band of about BAND_ROWS rows."""
     for tc in range(32, 0, -1):
-        bands = max(1, min(-(-H // band_rows), MAX_BLOCK_THREADS // tc))
+        bands = max(1, min(-(-H // BAND_ROWS), MAX_BLOCK_THREADS // tc))
         if itempass_smem_bytes(tc, bands, H, KC, KM) <= SMEM_BLOCK_BYTES:
             return tc, bands
     raise ValueError(f"item_pass: height {H} and pools {KC} / {KM} leave "
                      f"no column within {SMEM_BLOCK_BYTES} bytes")
 
 
-def itempass_blocks_per_sm(H: int, KC: int, KM: int,
-                           band_rows: int = BAND_ROWS,
-                           lib: str = "itempass") -> int:
+def itempass_blocks_per_sm(H: int, KC: int, KM: int) -> int:
     """Item-pass blocks one SM of this card holds (the CUDA occupancy
     calculator, from the built kernel's registers and the block's
-    shared memory); `lib` names a cost-probe build instead."""
+    shared memory)."""
     from doomtpu_torch.ops.build import load_library
 
-    tc, bands = itempass_tile(H, KC, KM, band_rows)
-    return load_library(lib).doom_itempass_blocks_per_sm(tc, bands, H, KC,
-                                                         KM)
+    tc, bands = itempass_tile(H, KC, KM)
+    return load_library("itempass").doom_itempass_blocks_per_sm(
+        tc, bands, H, KC, KM)
 
 
 @spanned("doom.itempass")
@@ -200,43 +197,14 @@ def item_pass(level: DeviceLevel, cfg: RenderConfig, items: dict,
         return item_pass_reference(level, cfg, items, paint_out)
     if idx.device.type != "cuda":
         raise ValueError(f"item_pass: no kernel for device {idx.device}")
-    launch_item_pass("itempass", level, cfg, items, paint_out, BAND_ROWS)
-    item_pass.launches += 1
-    return idx, paint_out["ld"], paint_out["rgb"]
-
-
-def item_pass_probe(level: DeviceLevel, cfg: RenderConfig, items: dict,
-                    paint_out: dict, probe: int,
-                    band_rows: int = BAND_ROWS) -> None:
-    """The item-pass kernel for the cost probe only (CUDA tensors; not
-    counted as a launch of `item_pass`): ITEMPASS_PROBE level 1 culls the
-    items and stages them and the records, 2 adds the (item, column)
-    terms, 3 the fold into the marks, without the write
-    (csrc/itempass.cu); 4 is the full kernel.  `band_rows` sets its
-    threads a column (`itempass_tile`).  Only level 4 updates the frame
-    as the item pass does."""
-    _check(level, cfg, items, paint_out)
-    if paint_out["idx"].device.type != "cuda" or probe not in (1, 2, 3, 4):
-        raise ValueError(f"item_pass_probe: level {probe} on "
-                         f"{paint_out['idx'].device}")
-    lib = "itempass" if probe == 4 else f"itempass_probe{probe}"
-    launch_item_pass(lib, level, cfg, items, paint_out, band_rows)
-
-
-def launch_item_pass(lib_name: str, level: DeviceLevel, cfg: RenderConfig,
-                     items: dict, paint_out: dict, band_rows: int) -> None:
-    """The item-pass kernel's launch (library `lib_name`) on checked CUDA
-    tensors, with bands of `band_rows` rows (`itempass_tile`).
-    `item_pass` is this at BAND_ROWS, counted; the cost probe and the
-    card's band sweep call it directly."""
     from doomtpu_torch.ops.build import load_library
 
     clip, mid = pools_from_paint(paint_out)
-    idx, ld, rgb = (paint_out[k] for k in ("idx", "ld", "rgb"))
-    lib = load_library(lib_name)
+    ld, rgb = paint_out["ld"], paint_out["rgb"]
+    lib = load_library("itempass")
     B, H, W = idx.shape
     KC, KM = clip["span"].shape[1], mid["span"].shape[1]
-    tc, bands = itempass_tile(H, KC, KM, band_rows)
+    tc, bands = itempass_tile(H, KC, KM)
     pc = _picture_columns(level)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     stream = torch.cuda.current_stream(idx.device).cuda_stream
@@ -252,6 +220,8 @@ def launch_item_pass(lib_name: str, level: DeviceLevel, cfg: RenderConfig,
     if err != 0:
         raise RuntimeError(f"item-pass kernel launch failed: CUDA error {err} "
                            f"({lib.doom_itempass_error_string(err).decode()})")
+    item_pass.launches += 1
+    return idx, ld, rgb
 
 
 item_pass.launches = 0

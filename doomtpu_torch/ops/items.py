@@ -33,8 +33,10 @@ import ctypes
 import torch
 
 from doomtpu_torch.config import RenderConfig
-from doomtpu_torch.ops.layout import KIND_MID, SPAN_DC, SPAN_E2B, SPAN_E2T
-from doomtpu_torch.ops.paint import LD_WRITTEN, SMEM_BLOCK_BYTES, _consts
+from doomtpu_torch.ops.layout import (
+    KIND_MID, LD_WRITTEN, SPAN_DC, SPAN_E2B, SPAN_E2T,
+)
+from doomtpu_torch.ops.paint import SMEM_BLOCK_BYTES, _consts
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
     F32, I32, as_i16, f32, fdiv, is_left_of, smul, wrap_tex,
@@ -91,29 +93,27 @@ def items_smem_bytes(tc: int, H: int, KI: int, KC: int) -> int:
     return 4 * tc * (H + 2 * KI + CLIP_RECORD_WORDS * KC)
 
 
-def items_tile(H: int, KI: int, KC: int,
-               band_rows: int = BAND_ROWS) -> tuple[int, int]:
+def items_tile(H: int, KI: int, KC: int) -> tuple[int, int]:
     """(TC, R) of an item-kernel block at screen height H, item capacity
     KI and clip capacity KC: TC columns, 32 while their shared memory
     (a mark a pixel, two words a slot, a staged clip record a clip slot)
     fits the SMEM_BLOCK_BYTES a block may use, else as many as fit; R
-    threads a column, each shading a band of about `band_rows` rows."""
+    threads a column, each shading a band of about BAND_ROWS rows."""
     per_column = items_smem_bytes(1, H, KI, KC)
     tc = min(32, SMEM_BLOCK_BYTES // per_column)
     if tc < 1:
         raise ValueError(f"composite_items: {per_column} bytes a column "
                          f"exceed the {SMEM_BLOCK_BYTES} a block may use")
-    return tc, max(1, min(-(-H // band_rows), MAX_BLOCK_THREADS // tc))
+    return tc, max(1, min(-(-H // BAND_ROWS), MAX_BLOCK_THREADS // tc))
 
 
-def items_blocks_per_sm(H: int, KI: int, KC: int,
-                        band_rows: int = BAND_ROWS) -> int:
+def items_blocks_per_sm(H: int, KI: int, KC: int) -> int:
     """Item-kernel blocks one SM of this card holds (the CUDA occupancy
     calculator, from the built kernel's registers and the block's
     shared memory)."""
     from doomtpu_torch.ops.build import load_library
 
-    tc, bands = items_tile(H, KI, KC, band_rows)
+    tc, bands = items_tile(H, KI, KC)
     return load_library("items").doom_items_blocks_per_sm(tc, bands, H, KI,
                                                           KC)
 
@@ -133,16 +133,6 @@ def composite_items(level: DeviceLevel, cfg: RenderConfig, ipool, icnt, idx,
                                          rgb, clip)
     if idx.device.type != "cuda":
         raise ValueError(f"composite_items: no kernel for device {idx.device}")
-    launch_items(level, cfg, ipool, icnt, idx, ld, rgb, clip, BAND_ROWS)
-    composite_items.launches += 1
-    return idx, ld, rgb
-
-
-def launch_items(level: DeviceLevel, cfg: RenderConfig, ipool, icnt, idx, ld,
-                 rgb, clip, band_rows: int) -> None:
-    """The item kernel's launch on CUDA tensors (checked), with bands of
-    `band_rows` rows (`items_tile`).  `composite_items` is this at
-    BAND_ROWS, counted; the card's band sweep calls it directly."""
     from doomtpu_torch.ops.build import load_library
 
     lib = load_library("items")
@@ -161,7 +151,7 @@ def launch_items(level: DeviceLevel, cfg: RenderConfig, ipool, icnt, idx, ld,
         cp = [None] * (len(CLIP_FIELDS) + 1)
         KC = 0
         planes += [None] * (ITEM_PLANES - len(planes))
-    tc, bands = items_tile(cfg.height, KI, KC, band_rows)
+    tc, bands = items_tile(cfg.height, KI, KC)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     stream = torch.cuda.current_stream(idx.device).cuda_stream
     err = lib.doom_items(
@@ -174,6 +164,8 @@ def launch_items(level: DeviceLevel, cfg: RenderConfig, ipool, icnt, idx, ld,
     if err != 0:
         raise RuntimeError(f"items kernel launch failed: CUDA error {err} "
                            f"({lib.doom_items_error_string(err).decode()})")
+    composite_items.launches += 1
+    return idx, ld, rgb
 
 
 composite_items.launches = 0

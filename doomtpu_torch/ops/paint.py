@@ -455,30 +455,29 @@ def paint_smem_bytes(tc: int, bands: int, H: int) -> int:
                 + (SEG_TERMS + 2 * SEG_JOBS) * bands * tc + 2 * tc + 2)
 
 
-def paint_tile(H: int, band_rows: int = BAND_ROWS) -> tuple[int, int]:
+def paint_tile(H: int) -> tuple[int, int]:
     """(TC, R) of a paint block at screen height H: TC columns, 32 while
     the block's shared memory (`paint_smem_bytes`) fits the
     SMEM_BLOCK_BYTES a block may use, else the largest power of two
     that fits (so a tile never straddles a 128-column live-list block,
     whose drop bit the kernel tests once a tile); R threads a column,
-    each painting a band of about `band_rows` rows,
+    each painting a band of about BAND_ROWS rows,
     TC * R <= MAX_BLOCK_THREADS."""
     for tc in (32, 16, 8, 4, 2, 1):
-        bands = max(1, min(-(-H // band_rows), MAX_BLOCK_THREADS // tc))
+        bands = max(1, min(-(-H // BAND_ROWS), MAX_BLOCK_THREADS // tc))
         if paint_smem_bytes(tc, bands, H) <= SMEM_BLOCK_BYTES:
             return tc, bands
     raise ValueError(f"paint: height {H} leaves no column of its frame "
                      f"within {SMEM_BLOCK_BYTES} bytes")
 
 
-def paint_blocks_per_sm(H: int, band_rows: int = BAND_ROWS,
-                        lib: str = "paint") -> int:
+def paint_blocks_per_sm(H: int, lib: str = "paint") -> int:
     """Paint blocks one SM of this card holds at height H (the CUDA
     occupancy calculator, from the built kernel's registers and the
     block's shared memory); `lib` names a cost-probe build instead."""
     from doomtpu_torch.ops.build import load_library
 
-    tc, bands = paint_tile(H, band_rows)
+    tc, bands = paint_tile(H)
     return load_library(lib).doom_paint_blocks_per_sm(tc, bands, H)
 
 
@@ -496,34 +495,31 @@ def paint(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
         return paint_reference(level, cfg, rows, scnt, camf, cami, drop)
     if rows.device.type != "cuda":
         raise ValueError(f"paint: no kernel for device {rows.device}")
-    out = _launch("paint", BAND_ROWS, level, cfg, rows, scnt, camf, cami,
-                  drop)
+    out = _launch("paint", level, cfg, rows, scnt, camf, cami, drop)
     paint.launches += 1
     return out
 
 
 def paint_probe(level: DeviceLevel, cfg: RenderConfig, rows, scnt, camf,
-                cami, probe: int, band_rows: int = BAND_ROWS) -> dict:
+                cami, probe: int) -> dict:
     """The paint kernel for the cost probe only (CUDA tensors; not
     counted as a launch of `paint`): PAINT_PROBE level 1 inits and
     writes the outputs, 2 adds the seg x-range checks, 3 the occlusion
-    and emit math without painting (csrc/paint.cu), 4 is the full
-    kernel; `band_rows` sets its threads a column (`paint_tile`).  Only
-    level 4's outputs are the paint's."""
+    and emit math without painting (csrc/paint.cu).  Its outputs are not
+    the paint's."""
     _check_inputs(level, cfg, rows, scnt, camf, cami, None)
-    if rows.device.type != "cuda" or probe not in (1, 2, 3, 4):
+    if rows.device.type != "cuda" or probe not in (1, 2, 3):
         raise ValueError(f"paint_probe: level {probe} on {rows.device}")
-    lib = "paint" if probe == 4 else f"paint_probe{probe}"
-    return _launch(lib, band_rows, level, cfg, rows, scnt, camf, cami, None)
+    return _launch(f"paint_probe{probe}", level, cfg, rows, scnt, camf, cami,
+                   None)
 
 
-def _launch(lib_name, band_rows, level, cfg, rows, scnt, camf, cami,
-            drop) -> dict:
+def _launch(lib_name, level, cfg, rows, scnt, camf, cami, drop) -> dict:
     from doomtpu_torch.ops.build import load_library
 
     B, G = rows.shape[:2]
     W, H, KM, KC = cfg.width, cfg.height, cfg.mid_capacity, cfg.clip_capacity
-    tc, bands = paint_tile(H, band_rows)
+    tc, bands = paint_tile(H)
     lib = load_library(lib_name)
     o = _alloc_outputs(B, W, H, KM, KC, rows.device)
     o["overflow"].zero_()          # the tiles of a camera add into it

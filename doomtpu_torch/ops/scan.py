@@ -69,13 +69,13 @@ def _check_inputs(level: DeviceLevel, cfg: RenderConfig, rows, scnt):
 SCAN_COLUMNS = 32
 
 
-def scan_blocks_per_sm(tc: int = SCAN_COLUMNS, lib: str = "scan") -> int:
-    """Wall-scan blocks of `tc` columns one SM of this card holds (the
-    CUDA occupancy calculator, from the built kernel's registers and
-    shared memory); `lib` names a cost-probe build instead."""
+def scan_blocks_per_sm() -> int:
+    """Wall-scan blocks of SCAN_COLUMNS columns one SM of this card holds
+    (the CUDA occupancy calculator, from the built kernel's registers
+    and shared memory)."""
     from doomtpu_torch.ops.build import load_library
 
-    return load_library(lib).doom_scan_blocks_per_sm(tc)
+    return load_library("scan").doom_scan_blocks_per_sm(SCAN_COLUMNS)
 
 
 @spanned("doom.walls")
@@ -89,33 +89,9 @@ def scan(level: DeviceLevel, cfg: RenderConfig, rows, scnt) -> dict:
         return scan_reference(level, cfg, rows, scnt)
     if rows.device.type != "cuda":
         raise ValueError(f"scan: no kernel for device {rows.device}")
-    out = launch_scan(level, cfg, rows, scnt, SCAN_COLUMNS)
-    scan.launches += 1
-    return out
-
-
-def scan_probe(level: DeviceLevel, cfg: RenderConfig, rows, scnt,
-               probe: int) -> dict:
-    """The wall-scan kernel for the cost probe only (CUDA tensors; not
-    counted as a launch of `scan`): SCAN_PROBE level 1 lists and stages
-    the rows, 2 adds the walk and the records without storing them
-    (csrc/scan.cu); 3 is the full kernel.  Only level 3's outputs are
-    the scan's."""
-    _check_inputs(level, cfg, rows, scnt)
-    if rows.device.type != "cuda" or probe not in (1, 2, 3):
-        raise ValueError(f"scan_probe: level {probe} on {rows.device}")
-    lib = "scan" if probe == 3 else f"scan_probe{probe}"
-    return launch_scan(level, cfg, rows, scnt, SCAN_COLUMNS, lib)
-
-
-def launch_scan(level: DeviceLevel, cfg: RenderConfig, rows, scnt,
-                tc: int, lib_name: str = "scan") -> dict:
-    """The wall-scan kernel's launch on checked CUDA tensors, `tc`
-    columns a block.  `scan` is this at SCAN_COLUMNS, counted; the
-    card's tile sweep and cost probe call it directly."""
     from doomtpu_torch.ops.build import load_library
 
-    lib = load_library(lib_name)
+    lib = load_library("scan")
     B, G = rows.shape[:2]
     W, H, K = cfg.width, cfg.height, cfg.span_capacity
     dev = rows.device
@@ -126,12 +102,13 @@ def launch_scan(level: DeviceLevel, cfg: RenderConfig, rows, scnt,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.doom_scan(
         p(rows), p(scnt), B, G, W, H, K, level.tex_pixels.shape[2],
-        int(level.tex_sizes_pow2), tc, p(pool), p(cnt), p(ovf),
+        int(level.tex_sizes_pow2), SCAN_COLUMNS, p(pool), p(cnt), p(ovf),
         ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {err} "
                            f"({lib.doom_scan_error_string(err).decode()})")
+    scan.launches += 1
     return {"pool": pool, "cnt": cnt, "overflow": ovf}
 
 

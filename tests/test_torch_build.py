@@ -34,10 +34,10 @@ def test_ptxas_report_gives_registers_spills_and_shared_memory():
 
 
 def test_probe_builds_name_a_source_and_a_level():
-    """The cost probes' builds name a kernel source with a probe level."""
+    """The cost probe's builds (P6, the paint kernel's) name the paint
+    kernel's source with a probe level."""
     assert set(build.VARIANTS) == {
-        "paint_probe1", "paint_probe2", "paint_probe3", "itempass_probe1",
-        "itempass_probe2", "itempass_probe3", "scan_probe1", "scan_probe2"}
+        "paint_probe1", "paint_probe2", "paint_probe3"}
     for name, (src, flags) in build.VARIANTS.items():
         assert src in build._SIGNATURES
         assert flags == (f"-D{src.upper()}_PROBE={name[-1]}",)

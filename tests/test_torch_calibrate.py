@@ -31,7 +31,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import spread_poses  # noqa: E402
+from torch_fixtures import spread_poses  # noqa: E402
 from doomtpu import calibrate as jcal  # noqa: E402
 from doomtpu.config import RenderConfig as JaxConfig  # noqa: E402
 from doomtpu.engine import DoomEngine as JaxEngine  # noqa: E402

@@ -3,10 +3,12 @@ wall-scan and resolve kernels against their plain PyTorch versions (on tall and 
 screens too, the paint kernel under a live-seg cap that drops segs, the
 resolve under a sky with transparent texels and on hand-made pools), the
 Hopper probes P1-P4 against theirs (every construct at both launch
-shapes, small N and S), and
-render / render_walls on the card against the same calls on the CPU, on
-the paint path (`use_pallas_paint=True`) and on the scan + resolve
-pipeline.
+shapes, small N and S), and the engine on the card: render /
+render_walls against the same calls on the CPU, on the paint path
+(`use_pallas_paint=True`), on the scan + resolve pipeline and on a
+256-row atlas, each pipeline's kernel launches, moving and reuse
+rollouts, calibration, the split over [cuda:0, cuda:0], the shell and
+the census of synchronizing calls.
 
 This file imports no JAX, so it also runs where there is a card and no
 JAX; the repo's conftest imports JAX, so leave it out there:
@@ -20,14 +22,18 @@ which nothing reads, tests/test_torch_pools.py).
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import sky_masked, tall_atlas  # noqa: E402
-from doomtpu_torch.wad import synth  # noqa: E402
+from torch_fixtures import (  # noqa: E402
+    launches, moving_controls, moving_rollout, sky_masked, spread_poses,
+    sync_census, tall_atlas, tall_mid_wad,
+)
+from doomtpu_torch.wad import builder, synth  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.config import RenderConfig  # noqa: E402
 from doomtpu_torch.ops import emit as kem  # noqa: E402
@@ -38,6 +44,7 @@ from doomtpu_torch.ops import probe_visit as pv  # noqa: E402
 from doomtpu_torch.ops import probe_ybounds as pyb  # noqa: E402
 from doomtpu_torch.ops import resolve as kres  # noqa: E402
 from doomtpu_torch.ops import scan as ts  # noqa: E402
+from doomtpu_torch.ops.layout import LD_SKY  # noqa: E402
 from doomtpu_torch.render import camera as cam  # noqa: E402
 from doomtpu_torch.render import resolve as res  # noqa: E402
 from doomtpu_torch.render import things, walls  # noqa: E402
@@ -51,6 +58,9 @@ VIEWS = [
     (300.0, 700.0, 4.6),
     (384.0, 256.0, 3.1),
 ]
+# the kernel launches of one call, by kernel, none but those named
+NO_LAUNCH = {"paint": 0, "items": 0, "scan": 0, "itempass": 0,
+             "resolve": 0, "emit": 0}
 
 
 @pytest.fixture(scope="module")
@@ -71,6 +81,29 @@ def engines(cuda):
 def _state(eng, pos, ang):
     return eng.new_game(len(ang), pos=pos, angle=ang,
                         generator=torch.Generator(eng.device).manual_seed(0))
+
+
+def _demo_state(eng):
+    """The demo views, twice: B=8."""
+    views = VIEWS * 2
+    return _state(eng, np.asarray([v[:2] for v in views], np.float32),
+                  np.asarray([v[2] for v in views], np.float32))
+
+
+def _frame_order(eng, cfg, st):
+    """The camera stage's seg frame and the traversal order of `st`."""
+    px, py = st.pos[:, 0], st.pos[:, 1]
+    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
+                                st.floor_height, st.sector_light,
+                                st.timestamp)
+    return frame, cam.seg_order(eng.level, cam.traversal_rank(eng.level,
+                                                              px, py))
+
+
+def _pack(eng, cfg, st, frame, order):
+    return things.item_pack(eng.level, cfg, frame, order, st.pos[:, 0],
+                            st.pos[:, 1], st.angle, st.floor_height,
+                            st.sector_light, st.mobj_state)[0]
 
 
 def _outputs(out) -> dict:
@@ -97,16 +130,10 @@ def _below_count(out) -> dict:
 
 def _demo_paint(eng, cfg):
     """Paint inputs of the demo views at B=8."""
-    views = VIEWS * 2
-    st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
-                np.asarray([v[2] for v in views], np.float32))
-    px, py = st.pos[:, 0], st.pos[:, 1]
-    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
-                                st.floor_height, st.sector_light,
-                                st.timestamp)
-    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    st = _demo_state(eng)
+    frame, order = _frame_order(eng, cfg, st)
     args = tp.build_inputs(eng.level, cfg, frame, order, st.angle,
-                           px, py, st.floor_height)
+                           st.pos[:, 0], st.pos[:, 1], st.floor_height)
     return st, frame, order, args
 
 
@@ -157,19 +184,26 @@ def test_scan_kernel_on_tall_and_wide_screens(screen):
     assert int(want["cnt"].max()) > 0
 
 
+def _assert_item_pass_equal(eng, cfg, pack, out):
+    """K3 against its plain version over the paint result `out`, each on
+    its own copy of the frame; some item drew."""
+    fresh = lambda: dict(out, **{k: out[k].clone()
+                                 for k in ("idx", "ld", "rgb")})
+    before = tip.item_pass.launches
+    got = tip.item_pass(eng.level, cfg, pack, fresh())
+    torch.cuda.synchronize()
+    assert tip.item_pass.launches == before + 1
+    want = tip.item_pass_reference(eng.level, cfg, pack, fresh())
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    return int((got[0] != out["idx"]).sum())
+
+
 def test_itempass_kernel_on_tall_and_wide_screens(screen):
     eng, cfg, st, frame, order, args = screen
     out = tp.paint(eng.level, cfg, *args)
-    pack, _ = things.item_pack(eng.level, cfg, frame, order, st.pos[:, 0],
-                               st.pos[:, 1], st.angle, st.floor_height,
-                               st.sector_light, st.mobj_state)
-    fresh = lambda: dict(out, **{k: out[k].clone()
-                                 for k in ("idx", "ld", "rgb")})
-    got = tip.item_pass(eng.level, cfg, pack, fresh())
-    want = tip.item_pass_reference(eng.level, cfg, pack, fresh())
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert int((got[0] != out["idx"]).sum()) > 0     # some item drew
+    pack = _pack(eng, cfg, st, frame, order)
+    assert _assert_item_pass_equal(eng, cfg, pack, out) > 0   # some drew
 
 
 @pytest.mark.parametrize("percam", [True, False], ids=["percam", "union"])
@@ -181,12 +215,9 @@ def test_paint_kernel_under_a_dropping_cap(cuda, percam):
                        paint_live_capacity=32, paint_percam_compact=percam)
     eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
                                     config=cfg, device=cuda)
-    st = _state(eng, *_spread(eng.tables, 32))
+    st = _state(eng, *spread_poses(eng.tables, 32))
     px, py = st.pos[:, 0], st.pos[:, 1]
-    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
-                                st.floor_height, st.sector_light,
-                                st.timestamp)
-    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    frame, order = _frame_order(eng, cfg, st)
     args = tp.build_inputs(eng.level, cfg, frame, order, st.angle, px, py,
                            st.floor_height)
     drop, dropped = tp.live_drop(cfg, args[0], args[1], order)
@@ -199,10 +230,37 @@ def test_paint_kernel_under_a_dropping_cap(cuda, percam):
     assert not torch.equal(got["idx"], uncapped["idx"])
 
 
+def _assert_items_equal(level, cfg, ipool, icnt, out, clip, drawn=0):
+    """K2 against its plain version over the paint result `out`, each on
+    its own copy of the frame; more than `drawn` pixels changed."""
+    bg = lambda: [out[k].clone() for k in ("idx", "ld", "rgb")]
+    before = ti.composite_items.launches
+    got = ti.composite_items(level, cfg, ipool, icnt, *bg(), clip=clip)
+    torch.cuda.synchronize()
+    assert ti.composite_items.launches == before + 1
+    want = ti.composite_items_reference(level, cfg, ipool, icnt, *bg(),
+                                        clip=clip)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert int((got[0] != out["idx"]).sum()) > drawn     # some item drew
+
+
+def _item_variant(level, cfg, ipool, clip, case):
+    """(level, ipool, clip) of K2's case: with the clip pool ("clip"),
+    without one (the words clipped beforehand, as the JAX _kernel_kouter
+    takes them) or on an atlas of 256 rows a column."""
+    if case == "clip=None":
+        ipool = ipool.clone()
+        ipool[0] = ti.clipped_words(ipool, clip, cfg.height)
+        clip = None
+    elif case == "atlas_rows=256":
+        level, ipool = tall_atlas(level, ipool)
+    return level, ipool, clip
+
+
 @pytest.mark.parametrize("case", ["clip", "clip=None", "atlas_rows=256"])
 def test_item_kernel_on_tall_and_wide_screens(screen, case):
-    """K2 with the clip pool, without one (the words clipped beforehand,
-    as the JAX _kernel_kouter takes them) and on an atlas of 256 rows a
+    """K2 with the clip pool, without one and on an atlas of 256 rows a
     column."""
     eng, cfg, st, frame, order, args = screen
     out = tp.paint(eng.level, cfg, *args)
@@ -210,101 +268,59 @@ def test_item_kernel_on_tall_and_wide_screens(screen, case):
     ipool, icnt, _ = things.item_pool(
         eng.level, cfg, frame, pools, order, st.pos[:, 0], st.pos[:, 1],
         st.angle, st.floor_height, st.sector_light, st.mobj_state)
-    level, clip = eng.level, pools[0]
-    if case == "clip=None":
-        ipool = ipool.clone()
-        ipool[0] = ti.clipped_words(ipool, clip, cfg.height)
-        clip = None
-    elif case == "atlas_rows=256":
-        level, ipool = tall_atlas(level, ipool)
-    bg = lambda: [out[k].clone() for k in ("idx", "ld", "rgb")]
-    got = ti.composite_items(level, cfg, ipool, icnt, *bg(), clip=clip)
-    want = ti.composite_items_reference(level, cfg, ipool, icnt, *bg(),
-                                        clip=clip)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert int((got[0] != out["idx"]).sum()) > 0     # some item drew
+    level, ipool, clip = _item_variant(eng.level, cfg, ipool, pools[0], case)
+    _assert_items_equal(level, cfg, ipool, icnt, out, clip)
 
 
-def _spread(t, n, seed=0):
-    rng = np.random.default_rng(seed)
-    left, right, top, bottom = [float(v) for v in t.bbox]
-    poses = []
-    while len(poses) < n:
-        x, y = rng.uniform(left, right), rng.uniform(top, bottom)
-        s = t.sector_at(x, y)
-        if s >= 0 and t.sector_floor_h[s] < t.sector_ceil_h[s]:
-            poses.append((x, y, rng.uniform(0, 2 * np.pi)))
-    return (np.asarray([p[:2] for p in poses], np.float32),
-            np.asarray([p[2] for p in poses], np.float32))
-
-
-@pytest.mark.parametrize("ki", [8, 24])
+@pytest.mark.parametrize("ki", ["8", "24", "24-clip=None",
+                                "24-atlas_rows=256"])
 def test_item_kernel_equals_plain_version(engines, ki):
     """The deferred pass's item pool on 8 views of the demo map, through
-    the kernel and through its plain version, clip pool included."""
+    the kernel and through its plain version, clip pool included; at
+    item capacity 24 also without the clip pool and on a 256-row
+    atlas."""
     eng, _ = engines
-    cfg = RenderConfig(item_capacity=ki)
-    views = VIEWS * 2
-    st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
-                np.asarray([v[2] for v in views], np.float32))
+    ki, case = (ki.split("-") + ["clip"])[:2]
+    cfg = RenderConfig(item_capacity=int(ki))
+    st = _demo_state(eng)
     px, py = st.pos[:, 0], st.pos[:, 1]
-    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
-                                st.floor_height, st.sector_light,
-                                st.timestamp)
-    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    frame, order = _frame_order(eng, cfg, st)
     out = tp.render_paint(eng.level, cfg, frame, order, st.angle, px, py,
                           st.floor_height)
     pools = things.pools_from_paint(out)
     ipool, icnt, _ = things.item_pool(
         eng.level, cfg, frame, pools, order, px, py, st.angle,
         st.floor_height, st.sector_light, st.mobj_state)
-    bg = lambda: [out[k].clone() for k in ("idx", "ld", "rgb")]
-    before = ti.composite_items.launches
-    got = ti.composite_items(eng.level, cfg, ipool, icnt, *bg(),
-                             clip=pools[0])
-    torch.cuda.synchronize()
-    assert ti.composite_items.launches == before + 1
-    want = ti.composite_items_reference(eng.level, cfg, ipool, icnt, *bg(),
-                                        clip=pools[0])
-    for g, w in zip(got, want):
-        assert g.is_cuda and torch.equal(g, w)
-    assert int((got[0] != out["idx"]).sum()) > 100
+    level, ipool, clip = _item_variant(eng.level, cfg, ipool, pools[0], case)
+    _assert_items_equal(level, cfg, ipool, icnt, out, clip, drawn=100)
 
 
-def test_itempass_kernel_equals_plain_version(engines):
-    """Every selected item of 8 views of the demo map, through the
-    item-pass kernel and through its plain version."""
-    eng, _ = engines
-    cfg = RenderConfig(use_item_pass_kernel=True)
-    views = VIEWS * 2
-    st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
-                np.asarray([v[2] for v in views], np.float32))
-    px, py = st.pos[:, 0], st.pos[:, 1]
-    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
-                                st.floor_height, st.sector_light,
-                                st.timestamp)
-    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
-    out = tp.render_paint(eng.level, cfg, frame, order, st.angle, px, py,
-                          st.floor_height)
-    pack, _ = things.item_pack(eng.level, cfg, frame, order, px, py,
-                               st.angle, st.floor_height, st.sector_light,
-                               st.mobj_state)
-    fresh = lambda: dict(out, **{k: out[k].clone()
-                                 for k in ("idx", "ld", "rgb")})
-    before = tip.item_pass.launches
-    got = tip.item_pass(eng.level, cfg, pack, fresh())
-    torch.cuda.synchronize()
-    assert tip.item_pass.launches == before + 1
-    want = tip.item_pass_reference(eng.level, cfg, pack, fresh())
-    for g, w in zip(got, want):
-        assert g.is_cuda and torch.equal(g, w)
-    assert int((got[0] != out["idx"]).sum()) > 100
+@pytest.mark.parametrize("wad", ["demo", "doom1-scale"])
+def test_itempass_kernel_equals_plain_version(engines, wad):
+    """Every selected item through the item-pass kernel and through its
+    plain version: 8 views of the demo map, and 16 spread views of
+    doom1-asset-scale (textures wider than 128 texels, ~48 flats, 256
+    visible map objects)."""
+    if wad == "demo":
+        eng, cfg = engines[0], RenderConfig(use_item_pass_kernel=True)
+        st = _demo_state(eng)
+    else:
+        cfg = RenderConfig(mid_capacity=40, clip_capacity=64,
+                           max_visible_mobjs=256, use_item_pass_kernel=True)
+        eng = DoomEngine.from_wad_bytes(synth.doom1_scale_wad(), "e1m1",
+                                        config=cfg, device=engines[0].device)
+        assert eng.level.itempaint_ok and eng.level.texq_wide
+        st = _state(eng, *spread_poses(eng.tables, 16))
+    frame, order = _frame_order(eng, cfg, st)
+    out = tp.render_paint(eng.level, cfg, frame, order, st.angle,
+                          st.pos[:, 0], st.pos[:, 1], st.floor_height)
+    pack = _pack(eng, cfg, st, frame, order)
+    assert _assert_item_pass_equal(eng, cfg, pack, out) > 100
 
 
-EMIT_CASES = ["demo-KI1", "demo-KI8", "demo-KI24", "e1m1-paint",
-              "e1m1-paint-bwk", "e1m1-scan", "e1m1-paint-t64",
-              "e1m1-paint-notable"]
+EMIT_CASES = ["demo-KI1", "demo-KI8", "demo-KI24", "demo-320x768",
+              "demo-1024x200", "e1m1-paint", "e1m1-paint-bwk", "e1m1-scan",
+              "e1m1-paint-t64", "e1m1-paint-notable"]
 
 
 @pytest.mark.parametrize("case", EMIT_CASES)
@@ -312,37 +328,40 @@ def test_emit_kernel_equals_plain_version(cuda, case, monkeypatch):
     """The deferred pass's emission (ops/emit.py) through the kernel and
     through its plain version, every plane of the pool, icnt,
     item_overflow and item_peak: the demo map at B=8 on the paint
-    path's mid pool at item capacity 1 (overflowing), 8 and 24;
-    e1m1-scale at B=32 on the paint path's mid pool, on the same pool
-    laid out as the JAX package's [B, W, K] store and read through its
-    strides ("-bwk"), on the scan path's unified pool, and in blocks
-    that emit_block picks only elsewhere: 64 threads (the columns in
-    five passes) and no seg -> item table (each seg looked up by a walk
-    of the pack, the fallback for levels whose table does not fit)."""
+    path's mid pool at item capacity 1 (overflowing), 8 and 24, and at
+    24 on a tall and a wide screen; e1m1-scale at B=32 on the paint
+    path's mid pool, on the same pool laid out as the JAX package's
+    [B, W, K] store and read through its strides ("-bwk"), on the scan
+    path's unified pool, and in blocks that emit_block picks only
+    elsewhere: 64 threads (the columns in five passes) and no seg ->
+    item table (each seg looked up by a walk of the pack, the fallback
+    for levels whose table does not fit)."""
     block = {"t64": (64, True), "notable": (320, False)}.get(
         case.rsplit("-", 1)[1])
     if block is not None:
         monkeypatch.setattr(kem, "emit_block", lambda *a: block)
     if case.startswith("demo"):
-        cfg = RenderConfig(item_capacity=int(case.split("KI")[1]),
-                           use_pallas_paint=True)
+        spec = case.split("-")[1]
+        if "x" in spec:
+            w, h = map(int, spec.split("x"))
+            cfg = RenderConfig(width=w, height=h, item_capacity=24,
+                               use_pallas_paint=True)
+        else:
+            cfg = RenderConfig(item_capacity=int(spec[2:]),
+                               use_pallas_paint=True)
         eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", config=cfg,
                                         device=cuda)
-        views = VIEWS * 2
-        st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
-                    np.asarray([v[2] for v in views], np.float32))
+        st = _demo_state(eng)
     else:
         cfg = RenderConfig(width=320, height=200, mid_capacity=40,
                            clip_capacity=64, item_capacity=24,
                            span_capacity=96, use_pallas_paint=True)
         eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
                                         config=cfg, device=cuda)
-        st = _state(eng, *_spread(eng.tables, 32))
+        st = _state(eng, *spread_poses(eng.tables, 32))
     lvl = eng.level
     px, py = st.pos[:, 0], st.pos[:, 1]
-    frame = cam.build_seg_frame(lvl, cfg, px, py, st.angle, st.floor_height,
-                                st.sector_light, st.timestamp)
-    order = cam.seg_order(lvl, cam.traversal_rank(lvl, px, py))
+    frame, order = _frame_order(eng, cfg, st)
     if case.endswith("scan"):
         pool, cnt, _ = walls.wall_scan(lvl, cfg, frame, order)
         mid = things.pools_from_unified(pool, cnt, frame)[1]
@@ -354,9 +373,7 @@ def test_emit_kernel_equals_plain_version(cuda, case, monkeypatch):
         bwk = lambda p: p.transpose(1, 2).contiguous().transpose(1, 2)
         mid = {k: v if k == "cnt" else bwk(v) for k, v in mid.items()}
         assert not mid["span"].is_contiguous()
-    pack, _ = things.item_pack(lvl, cfg, frame, order, px, py, st.angle,
-                               st.floor_height, st.sector_light,
-                               st.mobj_state)
+    pack = _pack(eng, cfg, st, frame, order)
     before = kem.emit.launches
     got = kem.emit(lvl, cfg, pack, mid)
     torch.cuda.synchronize()
@@ -378,34 +395,30 @@ def test_emit_kernel_equals_plain_version(cuda, case, monkeypatch):
 
 
 def test_emit_launches_once_a_deferred_pass(engines):
-    """A render launches the emission kernel once on the paint path and
-    on the scan path (the deferred pass), never with the item pass."""
+    """A render's kernel launches on each pipeline: on the paint path
+    K1, the emission kernel and K2 once each; on the scan path (forced)
+    K4, the resolve, the emission kernel and K2; with the item pass K1
+    and K3, no emission and no K2."""
     eng, _ = engines
-    views = VIEWS * 2
-    pos = np.asarray([v[:2] for v in views], np.float32)
-    ang = np.asarray([v[2] for v in views], np.float32)
-    for cfg, want in ((eng.config, 1),
-                      (dataclasses.replace(eng.config,
-                                           use_pallas_paint=False), 1),
-                      (dataclasses.replace(eng.config,
-                                           use_item_pass_kernel=True), 0)):
+    for cfg, want in (
+            (eng.config, {"paint": 1, "emit": 1, "items": 1}),
+            (dataclasses.replace(eng.config, use_pallas_paint=False),
+             {"scan": 1, "resolve": 1, "emit": 1, "items": 1}),
+            (dataclasses.replace(eng.config, use_item_pass_kernel=True),
+             {"paint": 1, "itempass": 1})):
         e = dataclasses.replace(eng, config=cfg)
-        st = _state(e, pos, ang)
-        before = (kem.emit.launches, tip.item_pass.launches)
-        e.render(st)
-        torch.cuda.synchronize()
-        assert kem.emit.launches - before[0] == want, cfg
-        assert tip.item_pass.launches - before[1] == 1 - want, cfg
+        st = _demo_state(e)
+        got, _ = launches(lambda: e.render(st))
+        assert got == dict(NO_LAUNCH, **want), cfg
 
 
 def test_render_walls_on_card_equals_cpu(engines):
     """B=16 spread poses, so the camera sort runs."""
     gpu, cpu = engines
-    pos, ang = _spread(cpu.tables, 16)
-    before = tp.paint.launches
-    idx, rgb = gpu.render_walls(_state(gpu, pos, ang))
-    torch.cuda.synchronize()
-    assert tp.paint.launches > before
+    pos, ang = spread_poses(cpu.tables, 16)
+    got, (idx, rgb) = launches(lambda: gpu.render_walls(_state(gpu, pos,
+                                                                ang)))
+    assert got == dict(NO_LAUNCH, paint=1)
     assert idx.is_cuda and rgb.is_cuda
     idx_c, rgb_c = cpu.render_walls(_state(cpu, pos, ang))
     assert torch.equal(idx.cpu(), idx_c)
@@ -414,56 +427,65 @@ def test_render_walls_on_card_equals_cpu(engines):
         "overflow": 0, "live_dropped": 0}
 
 
-@pytest.mark.parametrize("wad_fn", ["demo_wad", "e1m1_scale_wad"])
+def _wad(name):
+    if name == "tall_mid_wad":    # a 256-row masked mid: the scan path
+        return tall_mid_wad(synth, builder)
+    return getattr(synth, name)()
+
+
+@pytest.mark.parametrize("wad_fn", ["demo_wad", "e1m1_scale_wad",
+                                    "doom1_scale_wad", "tall_mid_wad"])
 def test_render_on_card_equals_cpu(cuda, wad_fn):
     """Full frames, B=16 spread poses (the camera sort runs), pools deep
-    enough to drop nothing."""
-    cfg = RenderConfig(mid_capacity=40, clip_capacity=64, item_capacity=24,
-                       use_pallas_paint=True)
-    wad = getattr(synth, wad_fn)()
+    enough to drop nothing: the paint path on the demo map, e1m1-scale
+    and doom1-asset-scale (textures wider than 128 texels, ~48 flats);
+    the scan path on a WAD whose masked mid is 256 rows tall (its column
+    atlas holds 256 rows, which the paint path does not take).  One
+    launch of the walls kernel, the emission kernel and K2 each."""
+    cfg = RenderConfig(span_capacity=64, mid_capacity=40, clip_capacity=64,
+                       item_capacity=24, use_pallas_paint=True)
+    wad = _wad(wad_fn)
     gpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device=cuda)
     cpu = DoomEngine.from_wad_bytes(wad, "e1m1", config=cfg, device="cpu")
-    pos, ang = _spread(cpu.tables, 16)
-    before = (tp.paint.launches, ti.composite_items.launches)
-    idx, rgb = gpu.render(_state(gpu, pos, ang))
-    torch.cuda.synchronize()
-    assert tp.paint.launches > before[0]
-    assert ti.composite_items.launches > before[1]
+    scan_path = wad_fn == "tall_mid_wad"
+    assert gpu.level.atlas_rows == (256 if scan_path else 128)
+    pos, ang = spread_poses(cpu.tables, 16)
+    got, (idx, rgb) = launches(lambda: gpu.render(_state(gpu, pos, ang)))
+    walls_kernels = {"scan": 1, "resolve": 1} if scan_path else {"paint": 1}
+    assert got == dict(NO_LAUNCH, emit=1, items=1, **walls_kernels)
     idx_c, rgb_c = cpu.render(_state(cpu, pos, ang))
     assert torch.equal(idx.cpu(), idx_c)
     assert torch.equal(rgb.cpu(), rgb_c)
     counters = gpu.render_counters(_state(gpu, pos, ang))
     assert set(counters.values()) == {0}, counters
+    # some item drew
+    assert bool((gpu.render_walls(_state(gpu, pos, ang))[0] != idx).any())
 
 
 def _masked_engine(device, cfg):
-    import warnings
-
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # GRATE on solid walls
         return DoomEngine.from_wad_bytes(synth.e1m1_scale_masked_wad(), "e1m1",
                                          config=cfg, device=device)
 
 
-@pytest.mark.parametrize("case", ["demo-K16", "demo-K4", "masked-K64"])
+@pytest.mark.parametrize("case", ["demo-K16", "demo-K4", "masked-K64",
+                                  "e1m1-K96"])
 def test_scan_kernel_equals_plain_version(cuda, case):
-    """Demo views at B=8 (K=4 overflows), e1m1-scale-masked at B=32."""
+    """Demo views at B=8 (K=4 overflows), e1m1-scale-masked at B=32 and
+    the paint-eligible e1m1-scale at B=32 (the pipeline forced)."""
     K = int(case.split("K")[1])
     cfg = RenderConfig(width=320, height=200, span_capacity=K)
     if case.startswith("demo"):
         eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", config=cfg,
                                         device=cuda)
-        views = VIEWS * 2
-        st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
-                    np.asarray([v[2] for v in views], np.float32))
+        st = _demo_state(eng)
     else:
-        eng = _masked_engine(cuda, cfg)
-        st = _state(eng, *_spread(eng.tables, 32))
-    px, py = st.pos[:, 0], st.pos[:, 1]
-    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
-                                st.floor_height, st.sector_light,
-                                st.timestamp)
-    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+        eng = (_masked_engine(cuda, cfg) if case.startswith("masked") else
+               DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                         config=cfg, device=cuda))
+        st = _state(eng, *spread_poses(eng.tables, 32))
+    frame, order = _frame_order(eng, cfg, st)
     rows, scnt = tp.build_rows(eng.level, frame, order)
     before = ts.scan.launches
     got = ts.scan(eng.level, cfg, rows, scnt)
@@ -486,7 +508,7 @@ def _assert_scan_equal(got, want, K):
 
 
 RESOLVE_CASES = ["e1m1-scale-B64", "e1m1-scale-masked", "sky-masked",
-                 "640x255", "320x768", "hand-made"]
+                 "640x255", "320x768", "1024x200", "hand-made"]
 
 
 def _hand_made(pool, cnt):
@@ -518,32 +540,28 @@ def test_resolve_kernel_equals_plain_version(cuda, case):
     """The resolve kernel against resolve_reference on the wall scan's
     pool, bit for bit in idx, ld and rgb: e1m1-scale spread poses at
     B=64, the GRATE level of test_render_masked_on_card_equals_cpu,
-    e1m1-scale's sky with transparent texels, a wide screen of 255 rows
-    and a tall one of 768 (rows past 254 take no span), and hand-made
-    pools."""
+    e1m1-scale's sky with transparent texels, a wide screen of 255 rows,
+    a tall one of 768 (rows past 254 take no span), the widest of the
+    paint path, and hand-made pools."""
     W, H, K = 320, 200, 96
-    if case in ("640x255", "320x768"):
+    if case[0].isdigit():
         W, H = map(int, case.split("x"))
     cfg = RenderConfig(width=W, height=H, span_capacity=K)
     if case == "e1m1-scale-masked":
         eng = _masked_engine(cuda, cfg)
-        st = _state(eng, *_spread(eng.tables, 32))
+        st = _state(eng, *spread_poses(eng.tables, 32))
     elif case in ("e1m1-scale-B64", "sky-masked"):
         eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
                                         config=cfg, device=cuda)
-        st = _state(eng, *_spread(eng.tables, 64 if "B64" in case else 32))
+        st = _state(eng, *spread_poses(eng.tables,
+                                       64 if "B64" in case else 32))
     else:
         eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", config=cfg,
                                         device=cuda)
-        views = VIEWS * 2
-        st = _state(eng, np.asarray([v[:2] for v in views], np.float32),
-                    np.asarray([v[2] for v in views], np.float32))
+        st = _demo_state(eng)
     px, py = st.pos[:, 0], st.pos[:, 1]
     poses = (px, py, st.angle, st.floor_height)
-    frame = cam.build_seg_frame(eng.level, cfg, px, py, st.angle,
-                                st.floor_height, st.sector_light,
-                                st.timestamp)
-    order = cam.seg_order(eng.level, cam.traversal_rank(eng.level, px, py))
+    frame, order = _frame_order(eng, cfg, st)
     pool, cnt, ovf = walls.wall_scan(eng.level, cfg, frame, order)
     assert int(ovf.sum()) == 0
     level = eng.level
@@ -563,7 +581,7 @@ def test_resolve_kernel_equals_plain_version(cuda, case):
     idx, ld = got[:2]
     assert float((idx[:, :255] >= 0).float().mean()) > 0.3
     if case == "sky-masked":
-        assert bool(((ld & tp.LD_SKY) != 0).any())
+        assert bool(((ld & LD_SKY) != 0).any())
         opaque = res.resolve_frame(eng.level, cfg, frame, pool, cnt, *poses)
         assert int((opaque[0] != idx).sum()) > 0
     if H > 255:
@@ -571,19 +589,15 @@ def test_resolve_kernel_equals_plain_version(cuda, case):
 
 
 def test_render_masked_on_card_equals_cpu(cuda):
-    """The scan + resolve pipeline end to end, B=8 spread poses."""
+    """The scan + resolve pipeline end to end, B=8 spread poses: K4, the
+    resolve, the emission kernel and K2 once each, no K1."""
     cfg = RenderConfig(span_capacity=64, mid_capacity=40, clip_capacity=64,
                        item_capacity=24, use_pallas_paint=True)
     gpu, cpu = _masked_engine(cuda, cfg), _masked_engine("cpu", cfg)
     assert not gpu.level.paint_ok
-    pos, ang = _spread(cpu.tables, 8)
-    before = (tp.paint.launches, ts.scan.launches, kres.resolve.launches,
-              ti.composite_items.launches)
-    idx, rgb = gpu.render(_state(gpu, pos, ang))
-    torch.cuda.synchronize()
-    assert (tp.paint.launches, ts.scan.launches, kres.resolve.launches,
-            ti.composite_items.launches) == (before[0], before[1] + 1,
-                                             before[2] + 1, before[3] + 1)
+    pos, ang = spread_poses(cpu.tables, 8)
+    got, (idx, rgb) = launches(lambda: gpu.render(_state(gpu, pos, ang)))
+    assert got == dict(NO_LAUNCH, scan=1, resolve=1, emit=1, items=1)
     idx_c, rgb_c = cpu.render(_state(cpu, pos, ang))
     assert torch.equal(idx.cpu(), idx_c)
     assert torch.equal(rgb.cpu(), rgb_c)
@@ -594,51 +608,154 @@ def test_render_masked_on_card_equals_cpu(cuda):
     assert set(counters.values()) == {0}, counters
 
 
+# the paint path of the rollouts: per-camera live lists under a cap
+ROLLOUT_CFG = RenderConfig(width=320, height=200, mid_capacity=40,
+                           clip_capacity=64, item_capacity=24,
+                           use_pallas_paint=True, paint_percam_compact=True,
+                           paint_live_capacity=256)
+
+
 @pytest.mark.parametrize("pipeline", ["paint-reuse", "scan"])
 def test_moving_rollout_on_card_equals_cpu(cuda, pipeline):
     """16 cameras, 4 ticks of moving controls on e1m1-scale at 320x200:
     a live-reuse rollout on the paint path (live_stale > 0, so the paint
     kernel reads drop bits set by the reuse) and a rollout on the scan +
     resolve path, the final state, the frames and live_stale equal to the
-    CPU port's (chip_smoke.moving_rollout)."""
-    from chip_smoke import moving_rollout
-
-    cfg = RenderConfig(width=320, height=200, mid_capacity=40,
-                       clip_capacity=64, item_capacity=24,
-                       use_pallas_paint=True, paint_percam_compact=True,
-                       paint_live_capacity=256)
+    CPU port's (torch_fixtures.moving_rollout)."""
+    cfg = ROLLOUT_CFG
     reuse = pipeline == "paint-reuse"
     if not reuse:
         cfg = dataclasses.replace(cfg, use_pallas_paint=False,
                                   span_capacity=96)
-    diffs, stale, stale_cpu, launches = moving_rollout(cuda, cfg, reuse)
+    diffs, stale, stale_cpu, got = moving_rollout(cuda, cfg, reuse)
     assert set(diffs.values()) == {0}, diffs
     assert stale == stale_cpu
-    assert launches["paint" if reuse else "scan"] == 4
-    assert launches["resolve"] == (0 if reuse else 4)
-    assert launches["items"] == launches["emit"] == 4
+    walls_kernels = {"paint": 4} if reuse else {"scan": 4, "resolve": 4}
+    assert got == dict(NO_LAUNCH, items=4, emit=4, **walls_kernels)
     if reuse:
         assert stale > 16 * 3
 
 
-@pytest.mark.parametrize("pipeline", ["paint", "scan"])
+def test_reuse_rollout_equals_fresh(cuda):
+    """64 cameras, 8 ticks of zero controls on e1m1-scale, per-camera live
+    lists under a cap set from the measured live peak (as JAX's
+    calibrate rounds it): the live-reuse rollout's checksums equal the
+    fresh rollout's, live_stale 0, K1, the emission kernel and K2 once a
+    tick in both, and every counter of the final state 0."""
+    n, T = 64, 8
+    cfg = dataclasses.replace(ROLLOUT_CFG, paint_live_capacity=0)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=cuda)
+    st = _state(eng, *spread_poses(eng.tables, n))
+    frame, order = _frame_order(eng, cfg, st)
+    rows, scnt = tp.build_rows(eng.level, frame, order)
+    peak = int(tp.live_lists(cfg, rows, scnt, order)[2].max())
+    cfg = dataclasses.replace(cfg, paint_live_capacity=-(-(peak + 1) // 32)
+                              * 32)
+    eng = dataclasses.replace(eng, config=cfg)
+    controls = torch.zeros((T, n), dtype=torch.int32, device=cuda)
+    draws = eng.light_draws(n, torch.Generator(cuda).manual_seed(0), ticks=T)
+    sums = {}
+    for reuse in (True, False):
+        got, out = launches(lambda: eng.rollout(
+            st, controls, draws=draws, return_frames=False,
+            live_reuse=reuse))
+        assert got == dict(NO_LAUNCH, paint=T, emit=T, items=T), reuse
+        final, sums[reuse] = out[0], out[1]
+        assert tuple(sums[reuse].shape) == (T, n) and int(final.tick[0]) == T
+        if reuse:
+            assert int(out[2]) == 0
+        assert set(eng.render_counters(final).values()) == {0}
+    assert torch.equal(sums[True], sums[False])
+
+
+def test_split_on_card_equals_unsplit(cuda):
+    """The batch split (doomtpu_torch/parallel): 64 cameras in two shards
+    on [cuda, cuda:0], driven by a SplitEngine over an engine whose home
+    is the CPU (each shard runs against the copy of the level on the
+    card; `cuda` and `cuda:0` name one card, one copy), against the
+    unsplit card engine: render, both counter calls (the per-shard
+    sums) and a 4-tick live-reuse rollout of moving controls."""
+    from doomtpu_torch.parallel import SplitEngine
+
+    n, T = 64, 4
+    wad = synth.e1m1_scale_wad()
+    card = DoomEngine.from_wad_bytes(wad, "e1m1", config=ROLLOUT_CFG,
+                                     device=cuda)
+    home = DoomEngine.from_wad_bytes(wad, "e1m1", config=ROLLOUT_CFG,
+                                     device="cpu")
+    state = _state(card, *spread_poses(card.tables, n))
+    split_engine = SplitEngine(home, ["cuda", "cuda:0"])
+    split = split_engine.shard(state)
+    assert [sh.device for sh in split.shards] == [state.device] * 2
+    assert list(split_engine.engines) == [state.device]
+    assert SplitEngine(card, ["cuda"]).engines[state.device] is card
+    got, frames = launches(lambda: split_engine.render(split))
+    assert got == dict(NO_LAUNCH, paint=2, emit=2, items=2)
+    assert frames[0].is_cuda
+    for a, b in zip(frames, card.render(state)):
+        assert torch.equal(a, b)
+    for call in ("render_counters", "render_walls_counters"):
+        c_split = getattr(split_engine, call)(split)
+        per = [getattr(card, call)(sh) for sh in split.shards]
+        assert c_split == {k: sum(p[k] for p in per) for k in c_split}
+        assert c_split == getattr(card, call)(state)
+    controls = moving_controls(T, n)
+    draws = torch.randint(0, 1 << 30, (T, 2, n, card.level.num_sectors),
+                          generator=torch.Generator().manual_seed(2),
+                          dtype=torch.int32)
+    got, (fs, frames_s, stale_s) = launches(lambda: split_engine.rollout(
+        split, controls, draws=draws, live_reuse=True))
+    assert got == dict(NO_LAUNCH, paint=2 * T, emit=2 * T, items=2 * T)
+    fu, frames_u, stale_u = card.rollout(state, controls, draws=draws,
+                                         live_reuse=True)
+    assert torch.equal(frames_s, frames_u)
+    assert int(stale_s) == int(stale_u)
+    for f in dataclasses.fields(fu):
+        assert torch.equal(getattr(fs.gather(), f.name),
+                           getattr(fu, f.name)), f.name
+
+
+def test_cli_on_card_equals_engine(cuda, tmp_path):
+    """The shell on the card: `--synth demo --walk --steps 35 --out
+    <tmp>.npy --device cuda`; its dump equals the card engine's frame
+    after the same ticks (render, then tick, each step: the last frame
+    follows 34 ticks)."""
+    from doomtpu_torch.cli import main
+    from doomtpu_torch.sim.player import KEY_LEFT, KEY_UP
+
+    out = tmp_path / "frame.npy"
+    assert main(["--synth", "demo", "--walk", "--steps", "35", "--out",
+                 str(out), "--device", "cuda"]) == 0
+    dump = np.load(out)
+    eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1", device=cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    state = eng.new_game(1, generator=gen)
+    walk = torch.full((1,), KEY_UP | KEY_LEFT, dtype=torch.int32)
+    for _ in range(34):
+        state = eng.tick(state, walk, gen)
+    want = eng.render(state)[1].cpu().numpy()
+    np.testing.assert_array_equal(dump, want)
+    assert (want != 0).any()
+
+
+@pytest.mark.parametrize("pipeline", ["paint", "scan", "itempass"])
 def test_every_sync_is_in_a_sync_range(cuda, pipeline):
     """torch.cuda's sync debug mode over a tick and a render of 64
     walking cameras on e1m1-scale at 320x200, pools calibrated on the
-    state: every synchronizing call lies inside a doom.sync range, no
-    range inside another, and the ranges number what the CPU tests hold
-    the port to (tests/test_torch_trace.py)."""
-    from chip_smoke import spread_poses, sync_census
+    state, on each pipeline: every synchronizing call lies inside a
+    doom.sync range, no range inside another, and the ranges number
+    what the CPU tests hold the port to (tests/test_torch_trace.py)."""
     from doomtpu_torch.sim.player import KEY_LEFT, KEY_UP
     from test_torch_trace import SYNCS_RENDER, SYNCS_TICK
 
     cfg = RenderConfig(width=320, height=200,
-                       use_pallas_paint=pipeline == "paint",
+                       use_pallas_paint=pipeline != "scan",
+                       use_item_pass_kernel=pipeline == "itempass",
                        paint_percam_compact=True)
     eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
                                     config=cfg, device=cuda)
-    pos, ang = spread_poses(eng.tables, 64)
-    st = _state(eng, pos, ang)
+    st = _state(eng, *spread_poses(eng.tables, 64))
     ctl = torch.full((64,), KEY_UP | KEY_LEFT, dtype=torch.int32,
                      device=cuda)
     st1 = eng.tick(st, ctl)
@@ -653,16 +770,16 @@ def test_every_sync_is_in_a_sync_range(cuda, pipeline):
 
 def test_calibrate_on_card_equals_cpu(engines):
     """The census on a CUDA engine (its wall scan launches the wall-scan
-    kernel) returns the CPU port's config on demo, B=8, a 3-tick chain of
-    walking cameras (draws from the CPU, so both chains are the same)."""
+    kernel, no render kernel) returns the CPU port's config on demo,
+    B=8, a 3-tick chain of walking cameras (draws from the CPU, so both
+    chains are the same); under it every counter of every chain state is
+    0 on the card, on the paint and on the scan path."""
     from doomtpu_torch.calibrate import calibrated_config
     from doomtpu_torch.sim.player import KEY_LEFT, KEY_UP
     from doomtpu_torch.sim.thinkers import draw_lights
 
     card, cpu = engines
-    pos = np.asarray([v[:2] for v in VIEWS * 2], np.float32)
-    ang = np.asarray([v[2] for v in VIEWS * 2], np.float32)
-    st_cpu = _state(cpu, pos, ang)
+    st_cpu = _demo_state(cpu)
     st_card = st_cpu.map(lambda x: x.to(card.device))
     gen = torch.Generator().manual_seed(1)
     ctl = torch.full((8,), KEY_UP | KEY_LEFT, dtype=torch.int32)
@@ -671,10 +788,16 @@ def test_calibrate_on_card_equals_cpu(engines):
         draws = draw_lights(gen, 8, cpu.level.num_sectors)
         chain_cpu.append(cpu.tick(chain_cpu[-1], ctl, draws=draws))
         chain_card.append(card.tick(chain_card[-1], ctl, draws=draws))
-    ts.scan.launches = 0
-    got = calibrated_config(card, chain_card, cache=False)
-    assert ts.scan.launches >= 3          # one per state's geometry census
+    n, got = launches(lambda: calibrated_config(card, chain_card,
+                                                cache=False))
+    assert n["scan"] >= 3                 # one per state's geometry census
+    assert n == dict(NO_LAUNCH, scan=n["scan"])
     assert got == calibrated_config(cpu, chain_cpu, cache=False)
+    for paint in (True, False):
+        e = dataclasses.replace(card, config=dataclasses.replace(
+            got, use_pallas_paint=paint))
+        for st in chain_card:
+            assert set(e.render_counters(st).values()) == {0}, paint
 
 
 @pytest.mark.parametrize("name", pv.CONSTRUCTS)

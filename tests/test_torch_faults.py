@@ -48,7 +48,7 @@ from doomtpu.render import things as jthings  # noqa: E402
 from doomtpu.sim.state import GameState as JaxState  # noqa: E402
 from doomtpu.wad import builder as jbuilder  # noqa: E402
 from doomtpu.wad import synth as jsynth  # noqa: E402
-from chip_smoke import tall_mid_wad  # noqa: E402
+from torch_fixtures import tall_mid_wad  # noqa: E402
 from doomtpu_torch.config import RenderConfig  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402

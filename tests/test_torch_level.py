@@ -139,10 +139,12 @@ def _bad_imports(source: str, name: str) -> list[str]:
 def test_port_never_imports_jax():
     """Static scan (every process here has jax preloaded, so a runtime
     sys.modules check would prove nothing): no module of the port, nor
-    chip_smoke.py or the card-only tests, imports jax, jaxlib or any
-    module of the JAX package doomtpu, not even a host-only one."""
+    chip_smoke.py, the card-only tests or their fixtures, imports jax,
+    jaxlib or any module of the JAX package doomtpu, not even a
+    host-only one."""
     files = sorted((ROOT / "doomtpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+              ROOT / "tests" / "torch_fixtures.py"]
     assert len(files) > 10
     bad = [b for f in files for b in _imports_jax(f)]
     assert not bad, bad

@@ -23,7 +23,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import spread_poses  # noqa: E402
+from torch_fixtures import spread_poses  # noqa: E402
 from doomtpu.render import camsort as jcamsort  # noqa: E402
 from doomtpu.sim.state import GameState as JaxState  # noqa: E402
 from doomtpu_torch.config import RenderConfig  # noqa: E402
