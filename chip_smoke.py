@@ -4,15 +4,16 @@ timed alone.
 
     python3 chip_smoke.py
 
-Builds every kernel library from the sources in this checkout (the six
-engine kernels, the paint kernel's cost-probe builds and the Hopper
+Builds every kernel library from the sources in this checkout (the
+engine's seven, the paint kernel's cost-probe builds and the Hopper
 probes; one nvcc per source, all started together) and reports each
 build's resources (registers, spills, shared memory, blocks an SM; a
 spill fails the run).  Then, on e1m1-scale's B=4096 inputs at 320x200
 (spread poses, Morton-sorted, as the engine takes them), it runs each
 engine kernel once against its plain PyTorch version and times it alone
-beside the least time its bytes and operations need: K1 (paint), K2
-(items), the emission and K3 (item pass) on the paint path's inputs, K4
+beside the least time its bytes and operations need: the seg rows and
+the live drop (csrc/rows.cu), K1 (paint), K2 (items), the emission and
+K3 (item pass) on the paint path's inputs, K4
 (wall scan) and the resolve on e1m1-scale-masked's.  It times the paint
 kernel's cost probe (P6: the kernel built at PAINT_PROBE levels 1-3,
 csrc/paint.cu) on the same inputs.  It then runs each pipeline once
@@ -53,7 +54,8 @@ F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 # the engine's kernel libraries and the Hopper probes' (ops/probe_visit.py,
 # ops/probe_ybounds.py)
-ENGINE_LIBS = ("paint", "items", "scan", "itempass", "resolve", "emit")
+ENGINE_LIBS = ("rows", "paint", "items", "scan", "itempass", "resolve",
+               "emit")
 PROBE_LIBS = ("probe_visit", "probe_ybounds")
 B = 4096
 T0 = time.perf_counter()
@@ -204,7 +206,8 @@ def resource_report(libs, card: str) -> dict:
     -Xptxas -v report, each kernel's registers a thread, spill stores and
     spill loads and static shared memory; the dynamic shared memory a
     block takes at the main path's launch (320x200, pools mid 40 / clip
-    64 / item 24; the emission at e1m1 scale's 408 items and 736 segs)
+    64 / item 24; the emission at e1m1 scale's 408 items and 736 segs,
+    the seg rows at its 736 segs)
     and the blocks an SM then holds (the CUDA occupancy calculator).  Any
     spill fails the run."""
     from doomtpu_torch.ops import build
@@ -221,43 +224,55 @@ def resource_report(libs, card: str) -> dict:
     # 193 drawable mids), 736 segs
     N, G = 408, 736
     e_threads, e_table = em.emit_block(320, N, KI, G)
+    rows_lib = build.load_library("rows")
+    # by kernel: (its dynamic shared memory, blocks an SM given the library)
     launch = {
-        "paint": (lambda: p.paint_smem_bytes(*p.paint_tile(H), H),
-                  lambda lib: p.paint_blocks_per_sm(H, lib=lib)),
-        "items": (lambda: it.items_smem_bytes(it.items_tile(H, KI, KC)[0],
-                                              H, KI, KC),
-                  lambda lib: it.items_blocks_per_sm(H, KI, KC)),
-        "itempass": (lambda: ip.itempass_smem_bytes(
-                         *ip.itempass_tile(H, KC, KM), H, KC, KM),
-                     lambda lib: ip.itempass_blocks_per_sm(H, KC, KM)),
-        "scan": (lambda: 0, lambda lib: sc.scan_blocks_per_sm()),
-        "resolve": (lambda: rs.resolve_smem_bytes(H),
-                    lambda lib: rs.resolve_blocks_per_sm(H)),
-        "emit": (lambda: em.emit_smem_bytes(e_threads, N, KI, G, e_table),
-                 lambda lib: em.emit_blocks_per_sm(320, N, KI, G)),
+        "paint_kernel": (lambda: p.paint_smem_bytes(*p.paint_tile(H), H),
+                         lambda lib: p.paint_blocks_per_sm(H, lib=lib)),
+        "items_kernel": (lambda: it.items_smem_bytes(
+                             it.items_tile(H, KI, KC)[0], H, KI, KC),
+                         lambda lib: it.items_blocks_per_sm(H, KI, KC)),
+        "itempass_kernel": (lambda: ip.itempass_smem_bytes(
+                                *ip.itempass_tile(H, KC, KM), H, KC, KM),
+                            lambda lib: ip.itempass_blocks_per_sm(H, KC, KM)),
+        "scan_kernel": (lambda: 0, lambda lib: sc.scan_blocks_per_sm()),
+        "resolve_kernel": (lambda: rs.resolve_smem_bytes(H),
+                           lambda lib: rs.resolve_blocks_per_sm(H)),
+        "emit_kernel": (lambda: em.emit_smem_bytes(e_threads, N, KI, G,
+                                                   e_table),
+                        lambda lib: em.emit_blocks_per_sm(320, N, KI, G)),
+        "rows_kernel": (lambda: rows_lib.doom_rows_smem_bytes(G),
+                        lambda lib: rows_lib.doom_rows_blocks_per_sm(G)),
+        "drop_kernel": (lambda: 0,
+                        lambda lib: rows_lib.doom_live_drop_blocks_per_sm(
+                            G, 1)),
+        "tile_drop_kernel": (
+            lambda: rows_lib.doom_live_drop_smem_bytes(G, 8),
+            lambda lib: rows_lib.doom_live_drop_blocks_per_sm(G, 8)),
     }
     report = {}
     for name in libs:
-        src = build.VARIANTS.get(name, (name,))[0]
         funcs = build.ptxas_resources(build.nvcc_output(name))
-        kernels = {k: v for k, v in funcs.items() if "registers" in v}
-        check(len(kernels) == 1, f"{name}: ptxas reported kernels "
-              f"{sorted(kernels)}")
-        (mangled, r), = kernels.items()
+        kernels = {re.search(r"\d+([a-z_]+_kernel)", k).group(1): v
+                   for k, v in funcs.items() if "registers" in v}
+        check(kernels and set(kernels) <= set(launch),
+              f"{name}: ptxas reported kernels {sorted(kernels)}")
         spills = {f: (v.get("spill_stores", 0), v.get("spill_loads", 0))
                   for f, v in funcs.items()}
-        smem_fn, blocks_fn = launch[src]
-        row = {"kernel": re.search(r"\d+([a-z_]+_kernel)", mangled).group(1),
-               "registers": r["registers"],
-               "spill_stores": sum(a for a, _ in spills.values()),
-               "spill_loads": sum(b for _, b in spills.values()),
-               "smem_static": r["smem_static"],
-               "smem_dynamic": smem_fn(), "blocks_per_sm": blocks_fn(name)}
-        report[name] = row
-        log(f"resources {name}: {json.dumps(row)}  [{card}]")
-        check(row["spill_stores"] == 0 and row["spill_loads"] == 0,
-              f"{name}: ptxas spills registers {spills}")
-        check(row["blocks_per_sm"] >= 1, f"{name}: no block fits an SM")
+        for kernel, r in kernels.items():
+            smem_fn, blocks_fn = launch[kernel]
+            row = {"kernel": kernel, "registers": r["registers"],
+                   "spill_stores": sum(a for a, _ in spills.values()),
+                   "spill_loads": sum(b for _, b in spills.values()),
+                   "smem_static": r["smem_static"],
+                   "smem_dynamic": smem_fn(),
+                   "blocks_per_sm": blocks_fn(name)}
+            key = name if len(kernels) == 1 else f"{name}.{kernel}"
+            report[key] = row
+            log(f"resources {key}: {json.dumps(row)}  [{card}]")
+            check(row["spill_stores"] == 0 and row["spill_loads"] == 0,
+                  f"{name}: ptxas spills registers {spills}")
+            check(row["blocks_per_sm"] >= 1, f"{key}: no block fits an SM")
     # a probe that spills prices its local-memory traffic too: reported;
     # a spill fails only in P1's tensor-core kernels, P2 / P3 and P4
     spills = {}
@@ -346,10 +361,11 @@ def paint_pools_below_count(out: dict, cfg) -> dict:
 
 
 def paint_kernels(dev, card: str) -> dict:
-    """K1, K2, the emission and K3 on e1m1-scale's B=4096 paint-path
-    inputs (hand pools mid 40 / clip 64 / item 24, which drop nothing
-    there), each against its plain version, then timed alone beside its
-    bound; P6, the paint kernel's cost split, on K1's inputs."""
+    """The seg rows and the live drop (on the camera stage's output), K1,
+    K2, the emission and K3 on e1m1-scale's B=4096 paint-path inputs
+    (hand pools mid 40 / clip 64 / item 24, which drop nothing there),
+    each against its plain version, then timed alone beside its bound;
+    P6, the paint kernel's cost split, on K1's inputs."""
     import torch
 
     from doomtpu_torch.config import RenderConfig
@@ -357,7 +373,8 @@ def paint_kernels(dev, card: str) -> dict:
     from doomtpu_torch.render import things
     from doomtpu_torch.wad import synth
 
-    phase(f"e1m1-scale B={B}: K1, K2, the emission, K3")
+    phase(f"e1m1-scale B={B}: the rows, the live drop, K1, K2, the "
+          f"emission, K3")
     cfg = RenderConfig(width=320, height=200, mid_capacity=40,
                        clip_capacity=64, item_capacity=24,
                        use_pallas_paint=True)
@@ -369,7 +386,7 @@ def paint_kernels(dev, card: str) -> dict:
     rows, scnt = args[0], args[1]
     log(f"active segs per camera: mean {scnt.float().mean().item():.1f}, "
         f"max {scnt.max().item()} of {lvl.num_segs}")
-    res = {}
+    res = rows_kernels(lvl, frame, order, card)
 
     # K1: the row words it reads of the active segs (16 of a row: all
     # before the pieces; 9 per active piece), the per-camera scalars and
@@ -424,6 +441,73 @@ def paint_kernels(dev, card: str) -> dict:
                                st.floor_height, st.sector_light,
                                st.mobj_state)
     res["itempass"] = itempass_kernel(lvl, ip_cfg, pack, out, card)
+    return res
+
+
+def distinct_bytes(t) -> int:
+    """Bytes of the distinct elements of `t` (a dimension expanded with
+    stride 0 counts once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def rows_kernels(lvl, frame, order, card: str) -> dict:
+    """The seg rows and the live drop (csrc/rows.cu), each against its
+    plain version (the drop under a cap of 32, which drops segs, with
+    tile-shared lists and then per-camera ones), then timed alone; the
+    row kept is the per-camera drop's, the benchmark's.  The rows' bound:
+    every frame field the rows take and the order read once (a [1, G]
+    field expanded to B once), the rows and scnt written whole; the
+    drop's: x0 and x1 of each active row and scnt read (per tile also
+    the order twice and each active row's seg id), the drop mask written
+    whole.  A few integer operations a word: bytes-bound."""
+    from doomtpu_torch.config import RenderConfig
+    from doomtpu_torch.ops import paint
+
+    got, ref, plain_ms = against_plain(
+        lambda: paint.build_rows(lvl, frame, order),
+        lambda: paint.build_rows_reference(lvl, frame, order))
+    err = differing(f"rows B={B}", {"rows": (got[0], ref[0]),
+                                    "scnt": (got[1], ref[1])})
+    del ref
+    rows, scnt = got
+    ms = event_ms(lambda: paint.build_rows(lvl, frame, order), 5)
+    fields = paint.ROW_FIELDS + paint.PIECE_FIELDS
+    r_in = (sum(distinct_bytes(frame[name]) for name, _ in fields)
+            + nbytes(order) + sum(nbytes(getattr(lvl, k)) for k in (
+                "flat_is_sky", "tex_h", "tex_w")))
+    r_out = nbytes(rows) + nbytes(scnt)
+    bound_ms, by = bound(r_in + r_out, 0.0)
+    log(f"rows B={B}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: {r_in} "
+        f"bytes read, {r_out} written), plain PyTorch {plain_ms:.2f} ms  "
+        f"[{card}]")
+    res = {"rows": kernel_row(err, ms, plain_ms, bound_ms, by)}
+
+    # the tile-shared drop, then the per-camera one (the benchmark's, kept)
+    for percam in (False, True):
+        cfg = RenderConfig(width=320, height=200, paint_live_capacity=32,
+                           paint_percam_compact=percam)
+        what = f"live drop {'per camera' if percam else 'per tile'} B={B}"
+        got, ref, plain_ms = against_plain(
+            lambda: paint.live_drop(cfg, rows, scnt, order),
+            lambda: paint.live_drop_reference(cfg, rows, scnt, order))
+        err = differing(what, {"drop": (got[0], ref[0]),
+                               "live_dropped": (got[1], ref[1])})
+        log(f"{what} at a cap of 32: {int(ref[1])} (camera or tile, seg, "
+            f"block) entries dropped")
+        del ref
+        ms = event_ms(lambda: paint.live_drop(cfg, rows, scnt, order), 5)
+        d_in = 8 * int(scnt.sum()) + nbytes(scnt)
+        if not percam:                 # the order twice, and R_G
+            d_in += 2 * nbytes(order) + 4 * int(scnt.sum())
+        d_out = nbytes(got[0]) + nbytes(got[1])
+        bound_ms, by = bound(d_in + d_out, 0.0)
+        log(f"{what}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+            f"{d_in} bytes read, {d_out} written), plain PyTorch "
+            f"{plain_ms:.2f} ms  [{card}]")
+    res["live_drop"] = kernel_row(err, ms, plain_ms, bound_ms, by)
     return res
 
 
@@ -708,38 +792,45 @@ def scan_kernels(dev, card: str) -> dict:
 
 def main_paths(dev, card: str) -> dict:
     """One untimed run of each pipeline through DoomEngine on B=4096
-    spread poses at 320x200, with the hand pools of the kernel phases:
-    render on e1m1-scale (K1, the emission and K2), on
-    e1m1-scale-masked (K4, the resolve, the emission and K2) and with
-    use_item_pass_kernel (K1 and K3), and a reuse rollout of T=8 ticks
-    of zero controls with per-camera live lists (K1, the emission and K2
-    once a tick; live_stale 0).  Each run's launches, read after a
-    synchronize, must be its pipeline's, and each render's capacity
-    counters 0.  Returns path -> launches."""
+    spread poses at 320x200, with the hand pools of the kernel phases and
+    the benchmark's per-camera live lists under a cap above every live
+    count (512): render on e1m1-scale (the rows, the live drop, K1, the
+    emission and K2), on e1m1-scale-masked (the rows, K4, the resolve,
+    the emission and K2) and with use_item_pass_kernel (the rows, the
+    live drop, K1 and K3), and a reuse rollout of T=8 ticks of zero
+    controls (the rows, K1, the emission and K2 once a tick, the live
+    drop on the refresh tick; live_stale 0).  Each run's launches, read
+    after a synchronize, must be its pipeline's, and each render's
+    capacity counters 0.  Returns path -> launches."""
     import torch
 
     from doomtpu_torch.config import RenderConfig
     from doomtpu_torch.wad import synth
-    from torch_fixtures import launches
+    from torch_fixtures import kernels, launches
 
     phase(f"the main paths at B={B}: launches")
     T = 8
     paint_cfg = RenderConfig(width=320, height=200, mid_capacity=40,
                              clip_capacity=64, item_capacity=24,
-                             use_pallas_paint=True)
-    none = dict.fromkeys(ENGINE_LIBS, 0)
+                             use_pallas_paint=True,
+                             paint_percam_compact=True,
+                             paint_live_capacity=512)
+    none = dict.fromkeys(kernels(), 0)
     runs = {
         "paint render": (synth.e1m1_scale_wad, paint_cfg,
-                         dict(none, paint=1, emit=1, items=1)),
+                         dict(none, rows=1, live_drop=1, paint=1, emit=1,
+                              items=1)),
         "scan render": (synth.e1m1_scale_masked_wad,
                         dataclasses.replace(paint_cfg, span_capacity=256),
-                        dict(none, scan=1, resolve=1, emit=1, items=1)),
+                        dict(none, rows=1, scan=1, resolve=1, emit=1,
+                             items=1)),
         "item-pass render": (synth.e1m1_scale_wad, dataclasses.replace(
                                  paint_cfg, use_item_pass_kernel=True),
-                             dict(none, paint=1, itempass=1)),
-        "reuse rollout": (synth.e1m1_scale_wad, dataclasses.replace(
-                              paint_cfg, paint_percam_compact=True),
-                          dict(none, paint=T, emit=T, items=T)),
+                             dict(none, rows=1, live_drop=1, paint=1,
+                                  itempass=1)),
+        "reuse rollout": (synth.e1m1_scale_wad, paint_cfg,
+                          dict(none, rows=T, live_drop=1, paint=T, emit=T,
+                               items=T)),
     }
     res = {}
     for what, (wad, cfg, want) in runs.items():
@@ -1040,7 +1131,8 @@ def main() -> int:
     probes = probes_timing(dev, card)
     phase("done")
     # each kernel's launches in one run of the main path that takes it
-    for k, path in (("paint", "paint render"), ("items", "paint render"),
+    for k, path in (("rows", "paint render"), ("live_drop", "paint render"),
+                    ("paint", "paint render"), ("items", "paint render"),
                     ("emit", "paint render"), ("scan", "scan render"),
                     ("resolve", "scan render"),
                     ("itempass", "item-pass render")):
@@ -1059,7 +1151,10 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"doomtpu_torch/ops/csrc/{src}.cu", "replaces": replaces,
         "library_ms": None, **r}
+    rows_note = "none (doomtpu/ops/pallas_paint.py render_paint, XLA)"
     log(json.dumps({"kernels": [
+        row("rows", "rows", rows_note, kernels["rows"]),
+        row("live_drop", "rows", rows_note, kernels["live_drop"]),
         row("paint", "paint", "doomtpu/ops/pallas_paint.py:326",
             kernels["paint"]),
         row("items", "items", "doomtpu/ops/pallas_items.py:245",

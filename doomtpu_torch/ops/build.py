@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface (the six kernels include
-the shared `csrc/layout.cuh`; the Hopper probes' `probe_visit.cu` and
+Each `csrc/<name>.cu` has a plain C interface (the seven kernel sources
+include the shared `csrc/layout.cuh`; the Hopper probes' `probe_visit.cu` and
 `probe_ybounds.cu` stand alone); a library of `VARIANTS` is a source
 built with extra defines (the paint kernel's cost-probe levels).  At
 first use it is compiled by nvcc into
@@ -9,9 +9,11 @@ first use it is compiled by nvcc into
 .gitignore lists) and loaded with ctypes; the library's file name
 carries a hash of the source, the headers and the flags, so an edited
 source or header is rebuilt.  A library that reads seg rows reports its
-row width, which must equal ops/layout.py's NR.  There is no fallback:
-a missing nvcc, a card other than Hopper, a failed build or a row width
-that disagrees raises.  The host library `csrc/doomdec.cpp` (the picture
+row width, which must equal ops/layout.py's NR; the rows library also
+spells the camera-stage fields it reads, which must equal ops/layout.py's
+ROW_FIELDS + PIECE_FIELDS.  There is no fallback: a missing nvcc, a card
+other than Hopper, a failed build or a row width or field list that
+disagrees raises.  The host library `csrc/doomdec.cpp` (the picture
 decoder, ops/native.py) is built the same way by `build_host_library`,
 with the host C++ compiler.
 """
@@ -27,7 +29,7 @@ import subprocess
 import time
 from pathlib import Path
 
-from doomtpu_torch.ops.layout import NR
+from doomtpu_torch.ops.layout import NR, row_fields_spec
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "doomtpu_torch"
@@ -119,6 +121,26 @@ _SIGNATURES = {
         ),
         "doom_scan_error_string": ([_I], _C.c_char_p),
         "doom_scan_blocks_per_sm": ([_I], _I),
+        "doom_row_words": ([], _I),
+    },
+    "rows": {
+        "doom_rows": (
+            [_P, _I, _P, _P, _I, _P, _P]       # fields nfields order sky NF
+            #                                     tex_h tex_w
+            + [_I, _I, _P, _P, _P],             # B G rows scnt stream
+            _I,
+        ),
+        "doom_live_drop": (
+            [_P, _P, _P, _I, _I, _I, _I, _I]   # rows scnt order B G nbw gc tb
+            + [_P, _P, _P],                     # drop dropped stream
+            _I,
+        ),
+        "doom_rows_smem_bytes": ([_I], _I),
+        "doom_rows_blocks_per_sm": ([_I], _I),
+        "doom_live_drop_smem_bytes": ([_I, _I], _I),
+        "doom_live_drop_blocks_per_sm": ([_I, _I], _I),
+        "doom_rows_fields": ([], _C.c_char_p),
+        "doom_rows_error_string": ([_I], _C.c_char_p),
         "doom_row_words": ([], _I),
     },
     "resolve": {
@@ -270,6 +292,12 @@ def load_library(name: str) -> ctypes.CDLL:
         raise RuntimeError(
             f"csrc/{src}.cu reads {lib.doom_row_words()}-word seg rows; "
             f"ops/layout.py builds {NR}-word rows"
+        )
+    if ("doom_rows_fields" in _SIGNATURES[src]
+            and lib.doom_rows_fields().decode() != row_fields_spec()):
+        raise RuntimeError(
+            f"csrc/{src}.cu reads the fields {lib.doom_rows_fields()!r}; "
+            f"ops/layout.py passes {row_fields_spec()!r}"
         )
     _loaded[name] = lib
     return lib

@@ -1,11 +1,12 @@
 // Word layouts and device helpers shared by the kernels: paint.cu,
-// scan.cu, items.cu, itempass.cu, emit.cu and resolve.cu.  Mirrors
-// doomtpu_torch/ops/layout.py: the span record of the pools and the seg
-// row the paint and wall-scan kernels read (those two libraries export
-// doom_row_words() = NR, which ops/build.py checks against the Python NR
-// when it loads them); the item kernels' staged clip record and shade;
-// the item pack (ops/itempass.py IPI_* / IPF_*) and a sprite's billboard
-// column math, which the item-pass and emission kernels share.
+// scan.cu, rows.cu, items.cu, itempass.cu, emit.cu and resolve.cu.
+// Mirrors doomtpu_torch/ops/layout.py: the span record of the pools and
+// the seg row that rows.cu writes and the paint and wall-scan kernels
+// read (those three libraries export doom_row_words() = NR, which
+// ops/build.py checks against the Python NR when it loads them); the
+// item kernels' staged clip record and shade; the item pack
+// (ops/itempass.py IPI_* / IPF_*) and a sprite's billboard column math,
+// which the item-pass and emission kernels share.
 
 #pragma once
 

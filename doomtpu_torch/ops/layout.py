@@ -97,3 +97,28 @@ P_UY1 = 8        # f: top - bottom height (non-finite -> 0), mid records
 P_UY1RAW = 9     # f: the same, as computed (wall texel v)
 P_WORDS = 10
 NR = R_PIECE0 + 4 * P_WORDS      # 56
+
+# the camera-stage fields a row is built from, with their dtypes, in the
+# order the rows kernel takes them (csrc/rows.cu FIELDS): [B, G] fields,
+# then [B, G, 4] ones (one a piece)
+ROW_FIELDS = (
+    ("x0", torch.int32), ("x1", torch.int32), ("lsx", torch.float32),
+    ("lsy", torch.float32), ("lex", torch.float32), ("ley", torch.float32),
+    ("length", torch.float32), ("start_offset", torch.float32),
+    ("offset_x_total", torch.int32), ("light", torch.int32),
+    ("floor_flat", torch.int32), ("ceil_flat", torch.int32),
+    ("floor_h_i", torch.int32), ("ceil_h_i", torch.int32),
+    ("two_sided", torch.bool), ("draw_ceiling", torch.bool),
+)
+PIECE_FIELDS = (
+    ("active", torch.bool), ("draws", torch.bool), ("yb_s", torch.int32),
+    ("yb_d", torch.float32), ("yt_s", torch.int32), ("yt_d", torch.float32),
+    ("uy1", torch.float32), ("off_y", torch.int32), ("tex", torch.int32),
+)
+
+
+def row_fields_spec() -> str:
+    """ROW_FIELDS + PIECE_FIELDS as csrc/rows.cu's doom_rows_fields()
+    spells them: name:dtype (b bool, i int32, f float32), spaced."""
+    code = {torch.bool: "b", torch.int32: "i", torch.float32: "f"}
+    return " ".join(f"{n}:{code[d]}" for n, d in ROW_FIELDS + PIECE_FIELDS)

@@ -4,7 +4,9 @@ Counterpart of doomtpu/ops/pallas_paint.py.  `render_paint` builds the
 kernel's inputs from a camera-stage frame (the host side of the JAX
 `render_paint`); `paint` launches the hand-written CUDA kernel
 (csrc/paint.cu) on CUDA tensors and runs `paint_reference`, its plain
-PyTorch version, on CPU tensors.  Both give the same bits.
+PyTorch version, on CPU tensors.  Both give the same bits.  The seg rows
+(`build_rows`) and the per-camera live drop (`live_drop`) are kernels too
+(csrc/rows.cu), beside `build_rows_reference` and `live_drop_reference`.
 
 What is computed, per camera and screen column, walking the camera's
 active segs front to back with the occlusion state (hor / fo / co):
@@ -52,10 +54,10 @@ from doomtpu_torch.config import (
 )
 from doomtpu_torch.ops.layout import (
     KIND_MID, KIND_WALL, LD_SKY, LD_WRITTEN, NR, P_OFFY, P_TEX, P_TH, P_TW,
-    P_UY1, P_UY1RAW, P_WORDS, P_YBD, P_YBS, P_YTD, P_YTS, R_FLAGS, R_FLAT,
-    R_G, R_LENGTH, R_LEX, R_LEY, R_LIGHT, R_LSX, R_LSY, R_OFFX, R_PIECE0,
-    R_PLANEH, R_SOFF, R_X0, R_X1, SPAN_DC, SPAN_E2B, SPAN_E2T, SPAN_NODRAW,
-    pack16, pack_span,
+    P_UY1, P_UY1RAW, P_WORDS, P_YBD, P_YBS, P_YTD, P_YTS, PIECE_FIELDS,
+    R_FLAGS, R_FLAT, R_G, R_LENGTH, R_LEX, R_LEY, R_LIGHT, R_LSX, R_LSY,
+    R_OFFX, R_PIECE0, R_PLANEH, R_SOFF, R_X0, R_X1, ROW_FIELDS, SPAN_DC,
+    SPAN_E2B, SPAN_E2T, SPAN_NODRAW, pack16, pack_span,
 )
 from doomtpu_torch.ops.resolve import camera_scalars
 from doomtpu_torch.render.device import DeviceLevel
@@ -103,12 +105,83 @@ def _consts(cfg: RenderConfig) -> dict:
 # input build (the host side of the JAX render_paint)
 # ---------------------------------------------------------------------------
 
+def _check_rows(level: DeviceLevel, frame: dict, order):
+    if order.dim() != 2 or order.dtype != I32 or not order.is_contiguous():
+        raise ValueError(f"build_rows: order must be contiguous int32 "
+                         f"[B, G], got {order.dtype} {tuple(order.shape)}")
+    B, G = order.shape
+    dev = order.device
+    fields = [(n, dt, (B, G)) for n, dt in ROW_FIELDS] + [
+        (n, dt, (B, G, 4)) for n, dt in PIECE_FIELDS]
+    for name, dt, shape in fields:
+        t = frame[name]
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"build_rows: frame[{name!r}] must be {dt} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"build_rows: frame[{name!r}] is on "
+                             f"{t.device}, order on {dev}")
+    for name, dt in (("flat_is_sky", torch.bool), ("tex_h", I32),
+                     ("tex_w", I32)):
+        t = getattr(level, name)
+        if (t.dtype != dt or t.dim() != 1 or not t.is_contiguous()
+                or t.device != dev or t.numel() == 0):
+            raise ValueError(f"build_rows: level.{name} must be a non-empty "
+                             f"contiguous {dt} vector on {dev}")
+
+
 @spanned("doom.rows")
 def build_rows(level: DeviceLevel, frame: dict, order):
     """(rows [B, G, NR] i32, scnt [B] i32): one row per (camera, seg),
     the camera's active segs first in traversal order, from a
-    camera-stage frame and the traversal order.  The paint and the wall
-    scan kernels both read them."""
+    camera-stage frame and the traversal order (a permutation of the
+    segs, `seg_order`'s).  The paint and the wall scan kernels both read
+    them.  CUDA tensors launch the kernel (csrc/rows.cu), counted in
+    `build_rows.launches`; CPU tensors run `build_rows_reference`.
+    Anything else raises.  The kernel reads each field through its own
+    strides (the [1, G] fields expanded to B in place)."""
+    from doomtpu_torch.ops.build import load_library
+
+    _check_rows(level, frame, order)
+    dev = order.device
+    if dev.type == "cpu":
+        return build_rows_reference(level, frame, order)
+    if dev.type != "cuda":
+        raise ValueError(f"build_rows: no kernel for device {dev}")
+    B, G = order.shape
+    lib = load_library("rows")
+    smem = lib.doom_rows_smem_bytes(G)
+    if smem > SMEM_BLOCK_BYTES:
+        raise ValueError(f"build_rows: {G} segs need {smem} bytes of shared "
+                         f"memory a block, more than {SMEM_BLOCK_BYTES}")
+    rows = torch.empty((B, G, NR), dtype=I32, device=dev)
+    scnt = torch.empty((B,), dtype=I32, device=dev)
+    desc = []
+    for name, _ in ROW_FIELDS + PIECE_FIELDS:
+        t = frame[name]
+        desc += [t.data_ptr(), *t.stride(), *(0,) * (3 - t.dim())]
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.doom_rows(
+        (ctypes.c_longlong * len(desc))(*desc), len(desc) // 4, p(order),
+        p(level.flat_is_sky), level.flat_is_sky.numel(), p(level.tex_h),
+        p(level.tex_w), B, G, p(rows), p(scnt), ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"rows kernel launch failed: CUDA error {err} "
+                           f"({lib.doom_rows_error_string(err).decode()})")
+    build_rows.launches += 1
+    return rows, scnt
+
+
+build_rows.launches = 0
+
+
+def build_rows_reference(level: DeviceLevel, frame: dict, order):
+    """Plain PyTorch seg rows: every field of a row through stacks and a
+    concatenation by seg id, then the stable partition (an argsort of
+    the active bits along the order) and a gather.  Same arguments and
+    outputs as `build_rows`, and the same bits."""
     B, G = order.shape
     active, draws, tex = frame["active"], frame["draws"], frame["tex"]
     ffl, cfl = frame["floor_flat"], frame["ceil_flat"]
@@ -321,7 +394,67 @@ def live_drop(cfg: RenderConfig, rows, scnt, order):
     `live_lists` keeps its first `live_capacity` entries.  Bit w of
     drop[b, k] is set where row k of camera b is live in block w and
     dropped; the paint skips it at that block's columns.  None: the cap
-    keeps every seg."""
+    keeps every seg.  Under a cap, CUDA tensors launch the drop kernel
+    (csrc/rows.cu: a warp a camera for per-camera lists, a block a tile
+    for the tile-shared ones), counted in `live_drop.launches`; CPU
+    tensors run `live_drop_reference`.  Anything else raises."""
+    from doomtpu_torch.ops.build import load_library
+
+    gc = live_capacity(cfg, order.shape[1])
+    dev = rows.device
+    if gc is None:
+        return None, torch.zeros((), dtype=I32, device=dev)
+    if dev.type == "cpu":
+        return live_drop_reference(cfg, rows, scnt, order)
+    if dev.type != "cuda":
+        raise ValueError(f"live_drop: no kernel for device {dev}")
+    B, G = order.shape
+    for name, t, dt, shape in (("rows", rows, I32, (B, G, NR)),
+                               ("scnt", scnt, I32, (B,)),
+                               ("order", order, I32, (B, G))):
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"live_drop: {name} must be contiguous {dt} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"live_drop: {name} is on {t.device}, rows on "
+                             f"{dev}")
+    nbw = -(-cfg.width // LIVE_BLOCK)
+    if nbw > 32:
+        raise ValueError(f"paint: {cfg.width} columns make {nbw} live-list "
+                         f"blocks; the drop mask holds 32")
+    if cfg.paint_percam_compact:
+        tb = 1
+    elif B % 4:
+        raise ValueError(f"live lists: batch {B} is no multiple of the "
+                         f"4-camera tile")
+    else:
+        tb = 8 if B % 8 == 0 else 4
+    lib = load_library("rows")
+    smem = lib.doom_live_drop_smem_bytes(G, tb)
+    if smem > SMEM_BLOCK_BYTES:
+        raise ValueError(f"live_drop: {G} segs need {smem} bytes of shared "
+                         f"memory a tile, more than {SMEM_BLOCK_BYTES}")
+    drop = torch.empty((B, G), dtype=I32, device=dev)
+    dropped = torch.empty((), dtype=I32, device=dev)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.doom_live_drop(p(rows), p(scnt), p(order), B, G, nbw, gc, tb,
+                             p(drop), p(dropped), ctypes.c_void_p(stream))
+    if err != 0:
+        msg = lib.doom_rows_error_string(err).decode()
+        raise RuntimeError(f"live drop kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+    live_drop.launches += 1
+    return drop, dropped
+
+
+live_drop.launches = 0
+
+
+def live_drop_reference(cfg: RenderConfig, rows, scnt, order):
+    """Plain PyTorch live drop over `live_lists` ([B, G, NBW] live
+    masks, their cumsum ranks and counts).  Same arguments and outputs
+    as `live_drop`, and the same bits."""
     gc = live_capacity(cfg, order.shape[1])
     if gc is None:
         return None, torch.zeros((), dtype=I32, device=rows.device)

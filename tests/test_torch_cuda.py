@@ -1,6 +1,8 @@
-"""Tests that need a CUDA card: the paint, item, item-pass, emission,
-wall-scan and resolve kernels against their plain PyTorch versions (on tall and wide
-screens too, the paint kernel under a live-seg cap that drops segs, the
+"""Tests that need a CUDA card: the seg-row, live-drop, paint, item,
+item-pass, emission, wall-scan and resolve kernels against their plain
+PyTorch versions (on tall and wide screens too, the seg rows on
+doom1-asset-scale and with a camera that sees no seg, the live drop and
+the paint kernel under a live-seg cap that drops segs, the
 resolve under a sky with transparent texels and on hand-made pools), the
 Hopper probes P1-P4 against theirs (every construct at both launch
 shapes, small N and S), and the engine on the card: render /
@@ -60,7 +62,7 @@ VIEWS = [
 ]
 # the kernel launches of one call, by kernel, none but those named
 NO_LAUNCH = {"paint": 0, "items": 0, "scan": 0, "itempass": 0,
-             "resolve": 0, "emit": 0}
+             "resolve": 0, "emit": 0, "rows": 0, "live_drop": 0}
 
 
 @pytest.fixture(scope="module")
@@ -230,6 +232,88 @@ def test_paint_kernel_under_a_dropping_cap(cuda, percam):
     assert not torch.equal(got["idx"], uncapped["idx"])
 
 
+def _assert_rows_equal(level, frame, order, cfg=None):
+    """The rows kernel against build_rows_reference: every row of every
+    camera (the inactive ones past scnt too) and scnt; under `cfg`, the
+    live drop against live_drop_reference: drop and live_dropped (the
+    drop kernel launches under a cap, per camera or per tile).
+    Returns (scnt, live_dropped)."""
+    before = tp.build_rows.launches
+    rows, scnt = tp.build_rows(level, frame, order)
+    torch.cuda.synchronize()
+    assert tp.build_rows.launches == before + 1
+    want_rows, want_scnt = tp.build_rows_reference(level, frame, order)
+    assert rows.is_cuda and scnt.is_cuda
+    assert torch.equal(rows, want_rows)
+    assert torch.equal(scnt, want_scnt)
+    if cfg is None:
+        return scnt, None
+    kernel = tp.live_capacity(cfg, order.shape[1]) is not None
+    before = tp.live_drop.launches
+    drop, dropped = tp.live_drop(cfg, rows, scnt, order)
+    torch.cuda.synchronize()
+    assert tp.live_drop.launches == before + int(kernel)
+    want_drop, want_dropped = tp.live_drop_reference(cfg, rows, scnt, order)
+    assert torch.equal(drop, want_drop)
+    assert int(dropped) == int(want_dropped)
+    return scnt, int(dropped)
+
+
+@pytest.mark.parametrize("percam", [True, False], ids=["percam", "union"])
+def test_rows_kernel_on_tall_and_wide_screens(screen, percam):
+    """The demo map at B=8 on a tall screen and on a 1024-column one
+    (8 live-list blocks), under a cap of 32 per camera and per tile."""
+    eng, cfg, st, frame, order, _ = screen
+    cfg = dataclasses.replace(cfg, paint_live_capacity=32,
+                              paint_percam_compact=percam)
+    assert tp.live_capacity(cfg, order.shape[1]) is not None
+    scnt, _ = _assert_rows_equal(eng.level, frame, order, cfg)
+    assert int(scnt.min()) > 0
+
+
+@pytest.mark.parametrize("percam,n", [(True, 32), (False, 32), (False, 12)],
+                         ids=["percam", "union", "union4"])
+def test_rows_kernels_under_a_dropping_cap(cuda, percam, n):
+    """e1m1-scale, n spread poses, paint_live_capacity 32: the rows and
+    the drop bits equal their plain versions' per camera and per tile
+    (8-camera tiles at B=32, 4-camera ones at B=12), and the cap drops
+    segs."""
+    cfg = RenderConfig(paint_live_capacity=32, paint_percam_compact=percam)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=cuda)
+    st = _state(eng, *spread_poses(eng.tables, n))
+    frame, order = _frame_order(eng, cfg, st)
+    _, dropped = _assert_rows_equal(eng.level, frame, order, cfg)
+    assert dropped > 0
+
+
+def test_rows_kernel_with_a_camera_that_sees_no_seg(cuda):
+    """e1m1-scale, B=8 spread poses, camera 2's segs all made inactive:
+    its scnt is 0, its rows are every seg in traversal order, and it
+    drops nothing under a per-camera cap."""
+    cfg = RenderConfig(paint_live_capacity=32, paint_percam_compact=True)
+    eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=cfg, device=cuda)
+    st = _state(eng, *spread_poses(eng.tables, 8, seed=1))
+    frame, order = _frame_order(eng, cfg, st)
+    frame = dict(frame, active=frame["active"].clone())
+    frame["active"][2] = False
+    scnt, _ = _assert_rows_equal(eng.level, frame, order, cfg)
+    assert int(scnt[2]) == 0 and int(scnt.max()) > 0
+
+
+def test_rows_kernel_on_doom1_asset_scale(cuda):
+    """The doom1-asset-scale level (its own seg count), B=16 spread
+    poses, per-camera lists under a cap of 32."""
+    cfg = RenderConfig(paint_live_capacity=32, paint_percam_compact=True)
+    eng = DoomEngine.from_wad_bytes(synth.doom1_scale_wad(), "e1m1",
+                                    config=cfg, device=cuda)
+    assert eng.level.num_segs != 736
+    st = _state(eng, *spread_poses(eng.tables, 16))
+    frame, order = _frame_order(eng, cfg, st)
+    _assert_rows_equal(eng.level, frame, order, cfg)
+
+
 def _assert_items_equal(level, cfg, ipool, icnt, out, clip, drawn=0):
     """K2 against its plain version over the paint result `out`, each on
     its own copy of the frame; more than `drawn` pixels changed."""
@@ -396,16 +480,17 @@ def test_emit_kernel_equals_plain_version(cuda, case, monkeypatch):
 
 def test_emit_launches_once_a_deferred_pass(engines):
     """A render's kernel launches on each pipeline: on the paint path
-    K1, the emission kernel and K2 once each; on the scan path (forced)
-    K4, the resolve, the emission kernel and K2; with the item pass K1
-    and K3, no emission and no K2."""
+    the rows, K1, the emission kernel and K2 once each; on the scan path
+    (forced) the rows, K4, the resolve, the emission kernel and K2; with
+    the item pass the rows, K1 and K3, no emission and no K2.  No live
+    drop: no cap."""
     eng, _ = engines
     for cfg, want in (
-            (eng.config, {"paint": 1, "emit": 1, "items": 1}),
+            (eng.config, {"rows": 1, "paint": 1, "emit": 1, "items": 1}),
             (dataclasses.replace(eng.config, use_pallas_paint=False),
-             {"scan": 1, "resolve": 1, "emit": 1, "items": 1}),
+             {"rows": 1, "scan": 1, "resolve": 1, "emit": 1, "items": 1}),
             (dataclasses.replace(eng.config, use_item_pass_kernel=True),
-             {"paint": 1, "itempass": 1})):
+             {"rows": 1, "paint": 1, "itempass": 1})):
         e = dataclasses.replace(eng, config=cfg)
         st = _demo_state(e)
         got, _ = launches(lambda: e.render(st))
@@ -418,7 +503,7 @@ def test_render_walls_on_card_equals_cpu(engines):
     pos, ang = spread_poses(cpu.tables, 16)
     got, (idx, rgb) = launches(lambda: gpu.render_walls(_state(gpu, pos,
                                                                 ang)))
-    assert got == dict(NO_LAUNCH, paint=1)
+    assert got == dict(NO_LAUNCH, rows=1, paint=1)
     assert idx.is_cuda and rgb.is_cuda
     idx_c, rgb_c = cpu.render_walls(_state(cpu, pos, ang))
     assert torch.equal(idx.cpu(), idx_c)
@@ -441,7 +526,8 @@ def test_render_on_card_equals_cpu(cuda, wad_fn):
     and doom1-asset-scale (textures wider than 128 texels, ~48 flats);
     the scan path on a WAD whose masked mid is 256 rows tall (its column
     atlas holds 256 rows, which the paint path does not take).  One
-    launch of the walls kernel, the emission kernel and K2 each."""
+    launch of the rows, the walls kernel, the emission kernel and K2
+    each."""
     cfg = RenderConfig(span_capacity=64, mid_capacity=40, clip_capacity=64,
                        item_capacity=24, use_pallas_paint=True)
     wad = _wad(wad_fn)
@@ -452,7 +538,7 @@ def test_render_on_card_equals_cpu(cuda, wad_fn):
     pos, ang = spread_poses(cpu.tables, 16)
     got, (idx, rgb) = launches(lambda: gpu.render(_state(gpu, pos, ang)))
     walls_kernels = {"scan": 1, "resolve": 1} if scan_path else {"paint": 1}
-    assert got == dict(NO_LAUNCH, emit=1, items=1, **walls_kernels)
+    assert got == dict(NO_LAUNCH, rows=1, emit=1, items=1, **walls_kernels)
     idx_c, rgb_c = cpu.render(_state(cpu, pos, ang))
     assert torch.equal(idx.cpu(), idx_c)
     assert torch.equal(rgb.cpu(), rgb_c)
@@ -597,7 +683,8 @@ def test_render_masked_on_card_equals_cpu(cuda):
     assert not gpu.level.paint_ok
     pos, ang = spread_poses(cpu.tables, 8)
     got, (idx, rgb) = launches(lambda: gpu.render(_state(gpu, pos, ang)))
-    assert got == dict(NO_LAUNCH, scan=1, resolve=1, emit=1, items=1)
+    assert got == dict(NO_LAUNCH, rows=1, scan=1, resolve=1, emit=1,
+                       items=1)
     idx_c, rgb_c = cpu.render(_state(cpu, pos, ang))
     assert torch.equal(idx.cpu(), idx_c)
     assert torch.equal(rgb.cpu(), rgb_c)
@@ -630,8 +717,10 @@ def test_moving_rollout_on_card_equals_cpu(cuda, pipeline):
     diffs, stale, stale_cpu, got = moving_rollout(cuda, cfg, reuse)
     assert set(diffs.values()) == {0}, diffs
     assert stale == stale_cpu
-    walls_kernels = {"paint": 4} if reuse else {"scan": 4, "resolve": 4}
-    assert got == dict(NO_LAUNCH, items=4, emit=4, **walls_kernels)
+    # the live drop on the refresh tick only (the reuse's drop bits later)
+    walls_kernels = ({"paint": 4, "live_drop": 1} if reuse
+                     else {"scan": 4, "resolve": 4})
+    assert got == dict(NO_LAUNCH, rows=4, items=4, emit=4, **walls_kernels)
     if reuse:
         assert stale > 16 * 3
 
@@ -640,8 +729,10 @@ def test_reuse_rollout_equals_fresh(cuda):
     """64 cameras, 8 ticks of zero controls on e1m1-scale, per-camera live
     lists under a cap set from the measured live peak (as JAX's
     calibrate rounds it): the live-reuse rollout's checksums equal the
-    fresh rollout's, live_stale 0, K1, the emission kernel and K2 once a
-    tick in both, and every counter of the final state 0."""
+    fresh rollout's, live_stale 0, the rows, K1, the emission kernel and
+    K2 once a tick in both (the live drop once a tick fresh, on the
+    refresh tick only with reuse), and every counter of the final state
+    0."""
     n, T = 64, 8
     cfg = dataclasses.replace(ROLLOUT_CFG, paint_live_capacity=0)
     eng = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
@@ -660,7 +751,8 @@ def test_reuse_rollout_equals_fresh(cuda):
         got, out = launches(lambda: eng.rollout(
             st, controls, draws=draws, return_frames=False,
             live_reuse=reuse))
-        assert got == dict(NO_LAUNCH, paint=T, emit=T, items=T), reuse
+        assert got == dict(NO_LAUNCH, rows=T, paint=T, emit=T, items=T,
+                           live_drop=1 if reuse else T), reuse
         final, sums[reuse] = out[0], out[1]
         assert tuple(sums[reuse].shape) == (T, n) and int(final.tick[0]) == T
         if reuse:
@@ -691,7 +783,8 @@ def test_split_on_card_equals_unsplit(cuda):
     assert list(split_engine.engines) == [state.device]
     assert SplitEngine(card, ["cuda"]).engines[state.device] is card
     got, frames = launches(lambda: split_engine.render(split))
-    assert got == dict(NO_LAUNCH, paint=2, emit=2, items=2)
+    assert got == dict(NO_LAUNCH, rows=2, live_drop=2, paint=2, emit=2,
+                       items=2)
     assert frames[0].is_cuda
     for a, b in zip(frames, card.render(state)):
         assert torch.equal(a, b)
@@ -706,7 +799,8 @@ def test_split_on_card_equals_unsplit(cuda):
                           dtype=torch.int32)
     got, (fs, frames_s, stale_s) = launches(lambda: split_engine.rollout(
         split, controls, draws=draws, live_reuse=True))
-    assert got == dict(NO_LAUNCH, paint=2 * T, emit=2 * T, items=2 * T)
+    assert got == dict(NO_LAUNCH, rows=2 * T, live_drop=2, paint=2 * T,
+                       emit=2 * T, items=2 * T)
     fu, frames_u, stale_u = card.rollout(state, controls, draws=draws,
                                          live_reuse=True)
     assert torch.equal(frames_s, frames_u)
@@ -769,8 +863,8 @@ def test_every_sync_is_in_a_sync_range(cuda, pipeline):
 
 
 def test_calibrate_on_card_equals_cpu(engines):
-    """The census on a CUDA engine (its wall scan launches the wall-scan
-    kernel, no render kernel) returns the CPU port's config on demo,
+    """The census on a CUDA engine (its wall scan launches the rows and
+    wall-scan kernels, no render kernel) returns the CPU port's config on demo,
     B=8, a 3-tick chain of walking cameras (draws from the CPU, so both
     chains are the same); under it every counter of every chain state is
     0 on the card, on the paint and on the scan path."""
@@ -791,7 +885,7 @@ def test_calibrate_on_card_equals_cpu(engines):
     n, got = launches(lambda: calibrated_config(card, chain_card,
                                                 cache=False))
     assert n["scan"] >= 3                 # one per state's geometry census
-    assert n == dict(NO_LAUNCH, scan=n["scan"])
+    assert n == dict(NO_LAUNCH, scan=n["scan"], rows=n["scan"])
     assert got == calibrated_config(cpu, chain_cpu, cache=False)
     for paint in (True, False):
         e = dataclasses.replace(card, config=dataclasses.replace(

@@ -150,6 +150,7 @@ def test_decorated_port_functions_keep_their_names():
         assert hasattr(fn, "__wrapped__"), (mod.__name__, name)
     assert paint.paint.launches >= 0 and scan.scan.launches >= 0
     assert itempass.item_pass.launches >= 0
+    assert paint.build_rows.launches >= 0 and paint.live_drop.launches >= 0
 
 
 def _outside(rng, spans):

@@ -94,13 +94,15 @@ def tall_mid_wad(synth, builder, rows_128_255=0) -> bytes:
 
 
 def kernels() -> dict:
-    """The engine's six kernel wrappers by name; each counts its launches
+    """The engine's kernel wrappers by name (the seg rows' two: the rows,
+    and the per-camera live drop under a cap); each counts its launches
     in `.launches`."""
     from doomtpu_torch.ops import emit, itempass, items, paint, resolve, scan
 
     return {"paint": paint.paint, "items": items.composite_items,
             "scan": scan.scan, "itempass": itempass.item_pass,
-            "resolve": resolve.resolve, "emit": emit.emit}
+            "resolve": resolve.resolve, "emit": emit.emit,
+            "rows": paint.build_rows, "live_drop": paint.live_drop}
 
 
 def launches(call) -> dict:
