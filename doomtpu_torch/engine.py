@@ -43,6 +43,8 @@ from doomtpu_torch.wad.reader import WadFile
 from doomtpu_torch.render.camsort import sort_state, unsort_out
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.frame import render_frame, render_walls_planes
+from doomtpu_torch.render.jmath import camera_trig
+from doomtpu_torch.sim import player as player_mod
 from doomtpu_torch.sim import step as step_mod
 from doomtpu_torch.sim.state import GameState, state_from_numpy
 from doomtpu_torch.sim.thinkers import ThinkerTables, draw_lights
@@ -123,20 +125,25 @@ class DoomEngine:
 
     def _render(self, state: GameState, items: bool):
         """(outputs, aux) of a render, cameras Morton-sorted when the
-        batch is larger than 8 (aux stays in sorted order)."""
+        batch is larger than 8 (aux stays in sorted order).  The call's
+        one host round trip comes first, while the device's queue is
+        empty: the angles' trig bundle, taken in caller order and
+        gathered with the cameras."""
+        trig = camera_trig(state.angle)
         perm = None
         if self.config.camera_sort and state.batch > 8:
             state, perm = sort_state(state)
+            trig = trig.index_select(1, perm)
         args = (state.pos[:, 0], state.pos[:, 1], state.angle,
                 state.floor_height, state.sector_light)
         if items:
             idx, rgb, aux = render_frame(
                 self.level, self.config, *args, state.mobj_state,
-                state.timestamp,
+                state.timestamp, trig=trig,
             )
         else:
             idx, rgb, aux = render_walls_planes(
-                self.level, self.config, *args, state.timestamp,
+                self.level, self.config, *args, state.timestamp, trig=trig,
             )
         out = (idx, rgb)
         if perm is not None:
@@ -226,9 +233,14 @@ class DoomEngine:
         live_reuse=False's.  In the JAX package the segments are its
         jitted scans; here the argument is only the refresh interval,
         kept so that frames and live_stale equal JAX's engine.rollout
-        for the same value."""
+        for the same value.
+
+        The call reads the device once, at its start: the trig of every
+        tick's angle (player.tick_trig), which each segment's ticks and
+        renders take their slices of."""
         controls_seq = self._controls(controls_seq)
         T = controls_seq.shape[0]
+        trig = player_mod.tick_trig(state.angle, controls_seq, self.turbo)
         if draws is None:
             g = self._generator(generator)
             draw = lambda t: self.light_draws(state.batch, g)
@@ -243,7 +255,7 @@ class DoomEngine:
                 self.level, self.thinkers, self.config, state,
                 controls_seq[s0:s0 + S], lambda t, s0=s0: draw(s0 + t),
                 return_frames=return_frames, live_reuse=live_reuse,
-                turbo=self.turbo)
+                turbo=self.turbo, trig=trig[s0:s0 + S])
             state = r[0]
             outs.append(r[1])
             if live_reuse:

@@ -247,19 +247,20 @@ def build_rows_reference(level: DeviceLevel, frame: dict, order):
 
 
 def build_inputs(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
-                 angle, px, py, floor_height):
+                 angle, px, py, floor_height, trig=None):
     """(rows [B, G, NR] i32, scnt [B] i32, camf [B, 3] f32, cami [B, 3]
-    i32) for `paint`, from a camera-stage frame and the traversal
-    order."""
+    i32) for `paint`, from a camera-stage frame, the traversal order and
+    the angles' trig bundle (`camera_scalars`)."""
     rows, scnt = build_rows(level, frame, order)
-    camf, cami = camera_scalars(angle, px, py, floor_height)
+    camf, cami = camera_scalars(angle, px, py, floor_height, trig)
     return rows, scnt, camf, cami
 
 
 def render_paint(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
                  angle, px, py, floor_height, reuse: dict | None = None,
-                 want_reuse: bool = False) -> dict:
-    """Run the paint stage over B cameras.
+                 want_reuse: bool = False, trig=None) -> dict:
+    """Run the paint stage over B cameras (`trig`: the angles' trig
+    bundle, `build_inputs`).
 
     Returns idx/ld/rgb [B, H, W], the mid pool (7 x [B, W, KM]), cnt_mid,
     the clip pool (7 x [B, W, KC]), cnt_clip, overflow [B, 2] (mid,
@@ -290,7 +291,7 @@ def render_paint(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
         raise ValueError("live-list reuse needs per-camera live lists "
                          "(paint_percam_compact)")
     rows, scnt, camf, cami = build_inputs(
-        level, cfg, frame, order, angle, px, py, floor_height
+        level, cfg, frame, order, angle, px, py, floor_height, trig
     )
     if reuse is None:
         drop, live_dropped = live_drop(cfg, rows, scnt, order)

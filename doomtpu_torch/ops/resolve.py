@@ -11,7 +11,8 @@ view of a slot-major [B, K, W] store (ops/scan.py), slots at or past a
 column's count never read.  Per camera it takes the sky column offset,
 the player's integer position, the floor height and the cos and sin of
 the view angle (`camera_scalars`, the paint kernel's per-camera words:
-the trig comes from the host, as the strict-FP rule wants).
+the trig comes from the host, as the strict-FP rule wants, in the call's
+trig bundle).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from doomtpu_torch.config import (
 )
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
-    I32, as_i16, cos_sin, div_const, div_trunc, f32, reciprocal,
+    COS, SIN, I32, as_i16, camera_trig, div_const, div_trunc, f32,
+    reciprocal,
 )
 
 # slot ids the kernel's winner arrays hold (u16, 0xFFFF: no slot)
@@ -38,15 +40,18 @@ MAX_SLOTS = 0xFFFF - 1
 COLUMNS, COVER_ROWS = 32, 255
 
 
-def camera_scalars(angle, px, py, floor_height):
+def camera_scalars(angle, px, py, floor_height, trig=None):
     """(camf [B, 3] f32: cos and sin of the angle, the floor height;
     cami [B, 3] i32: px and py as i16, the sky's texture column offset
     (visplanes.rs:42-80)), the per-camera words of the paint and resolve
-    kernels.  The trig is one host round trip (`jmath.cos_sin`)."""
+    kernels.  The trig is the rows COS and SIN of `trig`, the call's
+    bundle (jmath.camera_trig), else of a round trip here."""
     stw = SKY_TEXTURE_WIDTH
     ang = f32(angle)
-    c, s = cos_sin(ang)
-    camf = torch.stack([c, s, f32(floor_height)], -1).contiguous()
+    if trig is None:
+        trig = camera_trig(ang)
+    camf = torch.stack([trig[COS], trig[SIN], f32(floor_height)],
+                       -1).contiguous()
     tx_off = as_i16(div_const(ang * -float(stw), math.pi / 2.0))
     tx_off = tx_off + stw
     tx_off = torch.where(

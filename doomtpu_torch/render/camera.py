@@ -15,9 +15,10 @@ from doomtpu_torch.config import (
 )
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
-    I32, as_i16, as_i32, f32, fdiv, is_left_of, rotate, smul, sqrt,
+    NCOS, NSIN, I32, as_i16, as_i32, camera_trig, f32, fdiv, is_left_of,
+    rotate_cs, smul, sqrt,
 )
-from doomtpu_torch.trace import span, spanned
+from doomtpu_torch.trace import spanned
 
 
 # ---------------------------------------------------------------------------
@@ -126,9 +127,8 @@ def clip_to_viewport(sx, sy, ex, ey):
     quot_r = dx12 * 1.0 - dy12 * -1.0
     ok_l = torch.abs(quot_l) >= 0.001
     ok_r = torch.abs(quot_r) >= 0.001
-    with span("doom.sync"):   # fdiv uploads 1.0: each upload waits
-        inv_l = fdiv(1.0, quot_l)
-        inv_r = fdiv(1.0, quot_r)
+    inv_l = fdiv(1.0, quot_l)
+    inv_r = fdiv(1.0, quot_r)
     lix = inv_l * (d * -1.0 - dx12 * 0.0)
     liy = inv_l * (d * -1.0 - dy12 * 0.0)
     rix = inv_r * (d * -1.0 - dx12 * 0.0)
@@ -202,10 +202,12 @@ def build_seg_frame(
     px, py, angle, floor_height,       # player state, each [B]
     sector_light,                      # [B, SEC]
     timestamp,                         # [B]
+    trig=None,                         # the angles' trig bundle
 ):
     """All per-(camera, seg) quantities the paint stage needs: a dict of
     [B, G] / [B, G, 4] tensors in ORIGINAL seg index order.  Mirrors
-    process_seg (segs.rs:353-489)."""
+    process_seg (segs.rs:353-489).  The view transform's trig comes from
+    `trig` (jmath.camera_trig's rows), else from a round trip here."""
     B = px.shape[0]
     G = level.num_segs
 
@@ -214,9 +216,11 @@ def build_seg_frame(
     v1y = level.seg_v1[None, :, 1] - py[:, None]
     v2x = level.seg_v2[None, :, 0] - px[:, None]
     v2y = level.seg_v2[None, :, 1] - py[:, None]
-    na = -angle[:, None]
-    ssx, ssy = rotate(v1x, v1y, na)
-    sex, sey = rotate(v2x, v2y, na)
+    if trig is None:
+        trig = camera_trig(angle)
+    nc, ns = trig[NCOS][:, None], trig[NSIN][:, None]     # of -angle
+    ssx, ssy = rotate_cs(v1x, v1y, nc, ns)
+    sex, sey = rotate_cs(v2x, v2y, nc, ns)
 
     ok, lsx, lsy, lex, ley, start_offset = clip_to_viewport(ssx, ssy, sex, sey)
     valid = ok & (level.seg_front_side[None] >= 0)

@@ -24,7 +24,7 @@ from doomtpu_torch.render import camera as cam
 from doomtpu_torch.render import resolve as res
 from doomtpu_torch.render import things, walls
 from doomtpu_torch.render.device import DeviceLevel
-from doomtpu_torch.render.jmath import I32
+from doomtpu_torch.render.jmath import I32, camera_trig
 
 
 def paint_available(level: DeviceLevel, cfg: RenderConfig, B: int) -> bool:
@@ -73,9 +73,9 @@ def itempass_available(level: DeviceLevel, cfg: RenderConfig, B: int) -> bool:
 
 
 def _frame_and_order(level, cfg, px, py, angle, floor_height, sector_light,
-                     timestamp):
+                     timestamp, trig):
     frame = cam.build_seg_frame(
-        level, cfg, px, py, angle, floor_height, sector_light, timestamp
+        level, cfg, px, py, angle, floor_height, sector_light, timestamp, trig
     )
     return frame, cam.seg_order(level, cam.traversal_rank(level, px, py))
 
@@ -102,17 +102,17 @@ def _aux_paint(frame, order, out) -> dict:
 
 
 def _stages_scan(level, cfg, px, py, angle, floor_height, sector_light,
-                 timestamp):
+                 timestamp, trig):
     """The scan + resolve pipeline (JAX _stages_1_2): camera stage ->
     order -> wall scan -> resolve and shade.  Returns (idx, ld, rgb,
     aux), the frames the paint kernel gives; aux carries the frame,
     order, span pool, its counts and overflow [B], and live_dropped /
     live_stale (0: every active seg is visited)."""
     frame, order = _frame_and_order(level, cfg, px, py, angle, floor_height,
-                                    sector_light, timestamp)
+                                    sector_light, timestamp, trig)
     pool, cnt, overflow = walls.wall_scan(level, cfg, frame, order)
     idx, ld, rgb = res.resolve_frame(
-        level, cfg, frame, pool, cnt, px, py, angle, floor_height
+        level, cfg, frame, pool, cnt, px, py, angle, floor_height, trig
     )
     zero = torch.zeros((), dtype=I32, device=px.device)
     aux = {
@@ -128,20 +128,26 @@ def render_walls_planes(
     px, py, angle, floor_height,           # [B] player state
     sector_light,                          # [B, SEC]
     timestamp,                             # [B]
+    trig=None,                             # the angles' trig bundle
 ):
     """Solid walls + visplanes/sky -> (idx, rgb, aux).  aux carries the
     camera-stage frame and order, the pools (the paint kernel's mid and
     clip pools, or the unified span pool) and counters, and the
-    per-pixel light, dist and is_sky."""
+    per-pixel light, dist and is_sky.  Every stage takes its trig from
+    `trig` (jmath.camera_trig of `angle`), made here when not given."""
+    if trig is None:
+        trig = camera_trig(angle)
     if not paint_available(level, cfg, px.shape[0]):
         idx, ld, rgb, aux = _stages_scan(
-            level, cfg, px, py, angle, floor_height, sector_light, timestamp
+            level, cfg, px, py, angle, floor_height, sector_light, timestamp,
+            trig
         )
     else:
         frame, order = _frame_and_order(level, cfg, px, py, angle,
-                                        floor_height, sector_light, timestamp)
+                                        floor_height, sector_light, timestamp,
+                                        trig)
         out = render_paint(level, cfg, frame, order, angle, px, py,
-                           floor_height)
+                           floor_height, trig=trig)
         idx, ld, rgb = out["idx"], out["ld"], out["rgb"]
         aux = _aux_paint(frame, order, out)
     aux.update(_decoded(ld))
@@ -156,6 +162,7 @@ def render_frame(
     mobj_state,                            # [B, MO]
     timestamp,                             # [B]
     reuse: dict | None = None, want_reuse: bool = False,
+    trig=None,                             # the angles' trig bundle
 ):
     """The full frame: walls, planes, sky, sprites, masked mids.
 
@@ -172,7 +179,11 @@ def render_frame(
     `reuse`, a later tick draws in that order with that set, and
     aux["live_stale"] adds the cameras whose reused order is not the
     one their pose gives (camera.order_matches_rank) to the paint
-    stage's count.  0 proves the frame is the one a fresh tick draws."""
+    stage's count.  0 proves the frame is the one a fresh tick draws.
+
+    Every stage takes its trig from `trig`, the angles' bundle
+    (jmath.camera_trig), made here with one host round trip when not
+    given."""
     args = (px, py, angle, floor_height, sector_light, mobj_state)
     B = px.shape[0]
     if (reuse is not None or want_reuse) and (
@@ -180,17 +191,20 @@ def render_frame(
             or itempass_available(level, cfg, B)):
         raise ValueError("live-list reuse needs the paint + deferred "
                          "pipeline")
+    if trig is None:
+        trig = camera_trig(angle)
     if itempass_available(level, cfg, B):
-        return _render_item_pass(level, cfg, *args, timestamp)
+        return _render_item_pass(level, cfg, *args, timestamp, trig)
     if not paint_available(level, cfg, B):
         idx, ld, rgb, aux = _stages_scan(
-            level, cfg, px, py, angle, floor_height, sector_light, timestamp
+            level, cfg, px, py, angle, floor_height, sector_light, timestamp,
+            trig
         )
         pools = things.pools_from_unified(aux["pool"], aux["cnt"],
                                           aux["frame"])
     else:
         frame = cam.build_seg_frame(level, cfg, px, py, angle, floor_height,
-                                    sector_light, timestamp)
+                                    sector_light, timestamp, trig)
         rank = cam.traversal_rank(level, px, py)
         order_stale = 0
         if reuse is None:
@@ -200,7 +214,8 @@ def render_frame(
             order_stale = (~cam.order_matches_rank(level, rank, order)).sum(
                 dtype=I32)
         out = render_paint(level, cfg, frame, order, angle, px, py,
-                           floor_height, reuse=reuse, want_reuse=want_reuse)
+                           floor_height, reuse=reuse, want_reuse=want_reuse,
+                           trig=trig)
         idx, ld, rgb = out["idx"], out["ld"], out["rgb"]
         aux = _aux_paint(frame, order, out)
         aux["live_stale"] = out["live_stale"] + order_stale
@@ -209,6 +224,7 @@ def render_frame(
         pools = things.pools_from_paint(out)
     idx, ld, rgb, daux = things.deferred_pass(
         level, cfg, aux["frame"], pools, aux["order"], *args, idx, ld, rgb,
+        trig=trig,
     )
     aux.update(_decoded(ld))
     aux.update(daux)
@@ -216,18 +232,19 @@ def render_frame(
 
 
 def _render_item_pass(level, cfg, px, py, angle, floor_height, sector_light,
-                      mobj_state, timestamp):
+                      mobj_state, timestamp, trig):
     """render_frame through the item-pass kernel (JAX frame.py:206-244):
     the paint stage, then every selected item painted over its frame.
     No item pool, so item_overflow is 0."""
     frame, order = _frame_and_order(level, cfg, px, py, angle, floor_height,
-                                    sector_light, timestamp)
-    out = render_paint(level, cfg, frame, order, angle, px, py, floor_height)
+                                    sector_light, timestamp, trig)
+    out = render_paint(level, cfg, frame, order, angle, px, py, floor_height,
+                       trig=trig)
     aux = _aux_paint(frame, order, out)
     aux["item_block_dropped"] = torch.zeros((), dtype=I32, device=px.device)
     ipack, item_aux = things.item_pack(level, cfg, frame, order, px, py,
                                        angle, floor_height, sector_light,
-                                       mobj_state)
+                                       mobj_state, trig)
     aux.update(item_aux)
     if ipack is not None:
         item_pass(level, cfg, ipack, out)

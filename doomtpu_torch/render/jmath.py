@@ -13,7 +13,10 @@ card alike:
 - a true division by a Python number on a CUDA tensor becomes a
   multiply by its reciprocal inside PyTorch (one bit off), so every
   division goes through `fdiv`, which divides by a tensor;
-- cos and sin come from host numpy f32, as the strict mode's do;
+- cos and sin come from host numpy f32, as the strict mode's do: a
+  call reads its cameras' angles once, at its start, and hands the
+  values to every stage as one device tensor (`camera_trig`, the rows
+  COS .. SSIN);
 - a division by a constant goes through `div_const`: under jit, XLA
   rewrites x / c as x * f32(1 / c), and the JAX package divides by
   constants only inside jitted code;
@@ -40,13 +43,14 @@ def f32(x, device=None) -> torch.Tensor:
 
 
 def fdiv(a, b) -> torch.Tensor:
-    """IEEE f32 a / b.  A Python-number divisor becomes a 0-dim tensor
-    on a's device: PyTorch's CUDA division by a CPU scalar computes
-    a * (1 / b), which is not correctly rounded."""
+    """IEEE f32 a / b.  A Python-number operand becomes a 0-dim tensor
+    filled on the other operand's device, so no host copy waits for the
+    device: PyTorch's CUDA division by a CPU scalar computes a * (1 / b),
+    which is not correctly rounded."""
     if not isinstance(b, torch.Tensor):
-        b = torch.as_tensor(b, dtype=F32, device=a.device)
+        b = torch.full((), b, dtype=F32, device=a.device)
     if not isinstance(a, torch.Tensor):
-        a = torch.as_tensor(a, dtype=F32, device=b.device)
+        a = torch.full((), a, dtype=F32, device=b.device)
     return a.to(F32) / b.to(F32)
 
 
@@ -131,8 +135,9 @@ def wrap_tex(t, size, pow2: bool = False):
 
 
 def cos_sin(angle: torch.Tensor):
-    """f32 cos/sin from host numpy (the JAX strict mode's source): one
-    [B]-sized host round trip, never the device's own trig."""
+    """f32 cos/sin from host numpy (the JAX strict mode's source), never
+    the device's own trig: a host round trip of its own, for the plain
+    versions; the engine's stages read `camera_trig`'s rows."""
     with span("doom.sync"):
         a = angle.detach().to("cpu", F32).numpy()
         c = torch.from_numpy(np.cos(a, dtype=np.float32))
@@ -140,10 +145,46 @@ def cos_sin(angle: torch.Tensor):
         return c.to(angle.device), s.to(angle.device)
 
 
-def rotate(x, y, angle):
-    """map/vertexes.rs:20-25 (f32 trig)."""
-    c, s = cos_sin(angle)
+# rows of a trig bundle, each [B] f32: cos and sin of the view angle,
+# of its negation (the view transform's), and of the strafe direction,
+# angle + pi/2 (game.rs:349-359; a tick's bundle only)
+COS, SIN, NCOS, NSIN, SCOS, SSIN = range(6)
+HALF_PI = np.float32(np.pi) / np.float32(2.0)
+
+
+def host_trig(a: np.ndarray, rows: int, device) -> torch.Tensor:
+    """[..., rows, B] f32 trig bundle of the f32 angles a [..., B] on
+    `device`: numpy's f32 cos and sin of a, of -a and (rows 6) of
+    a + HALF_PI, each taken as `cos_sin` takes it, written into a host
+    tensor (pinned, for a card) and copied without waiting for the
+    device."""
+    a = np.asarray(a, np.float32)
+    cuda = torch.device(device).type == "cuda"
+    buf = torch.empty(a.shape[:-1] + (rows, a.shape[-1]), dtype=F32,
+                      pin_memory=cuda)
+    out = buf.numpy()
+    for k, x in enumerate((a, -a, a + HALF_PI)[:rows // 2]):
+        np.cos(x, out=out[..., 2 * k, :], dtype=np.float32)
+        np.sin(x, out=out[..., 2 * k + 1, :], dtype=np.float32)
+    return buf.to(device, non_blocking=True)
+
+
+def camera_trig(angle: torch.Tensor) -> torch.Tensor:
+    """The [4, B] trig bundle (rows COS, SIN, NCOS, NSIN) of the angles
+    [B]: one host round trip, which a render makes once, at its start."""
+    with span("doom.sync"):
+        return host_trig(angle.detach().to("cpu", F32).numpy(), 4,
+                         angle.device)
+
+
+def rotate_cs(x, y, c, s):
+    """map/vertexes.rs:20-25 by the angle whose f32 cos and sin are c, s."""
     return smul(x, c) - smul(y, s), smul(y, c) + smul(x, s)
+
+
+def rotate(x, y, angle):
+    """map/vertexes.rs:20-25 (f32 trig, `cos_sin`'s round trip)."""
+    return rotate_cs(x, y, *cos_sin(angle))
 
 
 def cross(ax, ay, bx, by):

@@ -97,10 +97,12 @@ def resolve_frame(
     frame: dict,
     pool, cnt,
     px, py, angle, floor_height,      # player state [B]
+    trig=None,                        # the angles' trig bundle
 ):
     """Walls + planes + sky, shaded -> (idx, ld, rgb), each [B, H, W] i32:
     palette indices (-1 unwritten), the ld words (`pack_ld`) and the
-    packed 0xRRGGBB shade (0 where unwritten).
+    packed 0xRRGGBB shade (0 where unwritten).  The kernel's per-camera
+    trig is `trig`'s (ops/resolve.py::camera_scalars).
 
     pool is render/walls.wall_scan's (spans, [d1..d6]), each a [B, W, K]
     view of a slot-major [B, K, W] store; slots at or past cnt [B, W]
@@ -112,7 +114,7 @@ def resolve_frame(
                                  floor_height)
     if cnt.device.type != "cuda":
         raise ValueError(f"resolve: no kernel for device {cnt.device}")
-    camf, cami = kernel.camera_scalars(angle, px, py, floor_height)
+    camf, cami = kernel.camera_scalars(angle, px, py, floor_height, trig)
     return kernel.resolve(level, cfg, pool, cnt, camf, cami)
 
 

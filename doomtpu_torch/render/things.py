@@ -55,10 +55,10 @@ from doomtpu_torch.ops.paint import pools_from_paint  # noqa: F401
 from doomtpu_torch.render import camera as cam
 from doomtpu_torch.render.device import DeviceLevel
 from doomtpu_torch.render.jmath import (
-    F32, I32, as_i16, fdiv, reciprocal, rotate, smul, sqrt,
-    stable_positions,
+    NCOS, NSIN, F32, I32, as_i16, camera_trig, fdiv, reciprocal, rotate_cs,
+    smul, sqrt, stable_positions,
 )
-from doomtpu_torch.trace import span, spanned
+from doomtpu_torch.trace import spanned
 
 _PI = np.float32(math.pi)
 _TWO_PI = np.float32(2.0) * _PI
@@ -106,8 +106,10 @@ def pools_from_unified(pool, cnt, frame: dict):
 
 
 def _sprite_scalars(level: DeviceLevel, cfg: RenderConfig, px, py, angle,
-                    floor_height, sector_light, mobj_state):
-    """Per-mobj billboard scalars [B, MO] (map_objects.rs:37-121)."""
+                    floor_height, sector_light, mobj_state, trig):
+    """Per-mobj billboard scalars [B, MO] (map_objects.rs:37-121); the
+    view transform's trig is the rows NCOS, NSIN of `trig`, the angles'
+    bundle (jmath.camera_trig)."""
     MO = level.num_mobjs
     state = mobj_state.long()
     alive = mobj_state != 0                                   # S_NULL
@@ -126,7 +128,7 @@ def _sprite_scalars(level: DeviceLevel, cfg: RenderConfig, px, py, angle,
 
     mx = level.mobj_pos[None, :, 0] - px[:, None]
     my = level.mobj_pos[None, :, 1] - py[:, None]
-    vpx, vpy = rotate(mx, my, -angle[:, None])
+    vpx, vpy = rotate_cs(mx, my, trig[NCOS][:, None], trig[NSIN][:, None])
     w_pic = level.spr_w[ps]
     half = w_pic.to(F32) * 0.5
     ok, lsx, lsy, lex, ley, start_off = cam.clip_to_viewport(
@@ -169,7 +171,8 @@ def _sprite_scalars(level: DeviceLevel, cfg: RenderConfig, px, py, angle,
 
 
 def _select_items(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
-                  px, py, angle, floor_height, sector_light, mobj_state):
+                  px, py, angle, floor_height, sector_light, mobj_state,
+                  trig):
     """Per-item scalars and the nearest-N painter-order selection.
 
     Returns None when the level has no items, else a dict with the
@@ -188,7 +191,7 @@ def _select_items(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
 
     if MO > 0:
         sps = _sprite_scalars(level, cfg, px, py, angle, floor_height,
-                              sector_light, mobj_state)
+                              sector_light, mobj_state, trig)
         valid, j_of_m = sps["valid"], sps["j_of_m"]
     else:
         valid = torch.zeros((B, 0), dtype=torch.bool, device=dev)
@@ -267,14 +270,18 @@ def _select_items(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
 
 
 def _item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
-               px, py, angle, floor_height, sector_light, mobj_state):
+               px, py, angle, floor_height, sector_light, mobj_state,
+               trig=None):
     """The selection and the per-item packs, in no span: the code that
     `item_pack` (the item pass) and `item_pool` (the deferred pass) share.
-    Returns (pack, items_dropped [B]), or (None, None) when the level has
-    no items."""
+    `trig`: the angles' trig bundle (jmath.camera_trig), else one round
+    trip here.  Returns (pack, items_dropped [B]), or (None, None) when
+    the level has no items."""
     B, dev = px.shape[0], px.device
+    if trig is None:
+        trig = camera_trig(angle)
     s = _select_items(level, cfg, frame, order, px, py, angle, floor_height,
-                      sector_light, mobj_state)
+                      sector_light, mobj_state, trig)
     if s is None:
         return None, None
     N = s["N"]
@@ -287,10 +294,8 @@ def _item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     spr_f = dict.fromkeys(range(IPF_ROWS), zf)
     if "spr" in s:
         sp = s["spr"]
-        one = 1.0
-        with span("doom.sync"):  # fdiv uploads 1.0, 0.0: each waits
-            inv0, inv1 = fdiv(one, sp["lsx"]), fdiv(one, sp["lex"])
-            z0 = fdiv(0.0, sp["lsx"])
+        inv0, inv1 = fdiv(1.0, sp["lsx"]), fdiv(1.0, sp["lex"])
+        z0 = fdiv(0.0, sp["lsx"])
         spr_i.update({
             IPI_X0: as_i16(sp["bsx"]),
             IPI_X1E: as_i16(sp["bex"]),          # bex is exclusive already
@@ -334,7 +339,8 @@ def _item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
 
 @spanned("doom.itempass")
 def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
-              px, py, angle, floor_height, sector_light, mobj_state):
+              px, py, angle, floor_height, sector_light, mobj_state,
+              trig=None):
     """The item-pass kernel's per-item packs (JAX things.item_pack).
 
     Returns ({"i": [B, N, IPI_ROWS] i32, "f": [B, N, IPF_ROWS] f32},
@@ -349,7 +355,7 @@ def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
     zero_aux = {"items_dropped": torch.zeros((B,), dtype=I32, device=dev),
                 "item_overflow": torch.zeros((B,), dtype=I32, device=dev)}
     pack, dropped = _item_pack(level, cfg, frame, order, px, py, angle,
-                               floor_height, sector_light, mobj_state)
+                               floor_height, sector_light, mobj_state, trig)
     if pack is None:
         return None, zero_aux
     return pack, dict(zero_aux, items_dropped=dropped)
@@ -357,7 +363,7 @@ def item_pack(level: DeviceLevel, cfg: RenderConfig, frame: dict, order,
 
 def item_census(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
                 px, py, angle, floor_height, sector_light, mobj_state,
-                tile: int = 1) -> dict:
+                tile: int = 1, trig=None) -> dict:
     """Uncapped per-column item presence and valid-item totals: the
     census behind calibration (doomtpu_torch/calibrate.py), JAX
     things.item_census.
@@ -388,8 +394,10 @@ def item_census(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
     n_valid = torch.zeros((B,), dtype=I32, device=dev)
     presence = torch.zeros((B, W), dtype=I32, device=dev)
     if MO > 0:
+        if trig is None:
+            trig = camera_trig(angle)
         sps = _sprite_scalars(level, cfg, px, py, angle, floor_height,
-                              sector_light, mobj_state)
+                              sector_light, mobj_state, trig)
         valid = sps["valid"]
         x0, x1 = as_i16(sps["bsx"]), as_i16(sps["bex"])      # x1 exclusive
         lo, hi = torch.clamp(x0, 0, W), torch.clamp(x1, 0, W)
@@ -433,7 +441,8 @@ def item_census(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
 
 
 def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
-              order, px, py, angle, floor_height, sector_light, mobj_state):
+              order, px, py, angle, floor_height, sector_light, mobj_state,
+              trig=None):
     """The item kernel's inputs for B cameras, in one pass over the
     batch: (ipool [ITEM_PLANES, B, KI, W] i32, icnt [B, W] i32, daux);
     ipool is None when the level has no items.  daux counts
@@ -452,7 +461,7 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
         return None, None, daux
     pack, daux["items_dropped"] = _item_pack(
         level, cfg, frame, order, px, py, angle, floor_height, sector_light,
-        mobj_state)
+        mobj_state, trig)
     ipool, icnt, daux["item_overflow"], daux["item_peak"] = emit(
         level, cfg, pack, pools[1])
     return ipool, icnt, daux
@@ -461,7 +470,7 @@ def item_pool(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
 @spanned("doom.deferred")
 def deferred_pass(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
                   order, px, py, angle, floor_height, sector_light,
-                  mobj_state, idx, ld, rgb):
+                  mobj_state, idx, ld, rgb, trig=None):
     """Composite sprites + masked mids over the frame.
 
     `pools` is the (clip, mid) pair from pools_from_paint or
@@ -469,10 +478,12 @@ def deferred_pass(level: DeviceLevel, cfg: RenderConfig, frame: dict, pools,
     walls, planes and sky (ld packed as the paint kernel's) and are
     updated in place.
     Returns (idx, ld, rgb, daux), daux counting items_dropped (beyond
-    max_visible_mobjs) and item_overflow (item-pool column overflow)."""
+    max_visible_mobjs) and item_overflow (item-pool column overflow).
+    `trig`: the angles' trig bundle (jmath.camera_trig), passed on to the
+    item selection."""
     ipool, icnt, daux = item_pool(
         level, cfg, frame, pools, order, px, py, angle, floor_height,
-        sector_light, mobj_state,
+        sector_light, mobj_state, trig,
     )
     if ipool is not None:
         idx, ld, rgb = composite_items(level, cfg, ipool, icnt, idx, ld, rgb,

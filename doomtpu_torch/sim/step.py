@@ -3,7 +3,10 @@
 Counterpart of doomtpu/sim/step.py.  `tick` mirrors Game::tick
 (game.rs:463-466): the player's controls, then every thinker.  A
 rollout is T ticks of step and render; on the card each tick renders
-through the kernels of the config's pipeline (render/frame.py).
+through the kernels of the config's pipeline (render/frame.py).  A
+rollout reads the device once, at its start: the trig of every tick's
+angle (sim/player.py::tick_trig) is one table that the movement and
+the render of each tick read on the device.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from doomtpu_torch.trace import span, spanned
 @spanned("doom.sim.tick")
 def tick(level: DeviceLevel, tkt: ThinkerTables, state: GameState,
          controls, draws, turbo: float = 1.0) -> GameState:
-    """One tick: `controls` [B] i32 bitmask (sim/player.py), `draws`
-    [2, B, SEC] i32 in [0, 2^30), the light step's randomness
+    """One tick: `controls` [B] i32 bitmask (sim/player.py), or a
+    player.Controls that carries the tick's trig along (a rollout's),
+    `draws` [2, B, SEC] i32 in [0, 2^30), the light step's randomness
     (thinkers.draw_lights)."""
     pos, angle, floor_h = player_mod.move_player(
         level, state.pos, state.angle, controls, turbo)
@@ -58,12 +62,13 @@ def respawn_everything(level: DeviceLevel, state: GameState) -> GameState:
     return replace(state, mobj_state=s, mobj_tics=t)
 
 
-def _render(level, cfg, st: GameState, return_frames: bool, reuse=None,
-            want_reuse=False):
+def _render(level, cfg, st: GameState, return_frames: bool, trig,
+            reuse=None, want_reuse=False):
     """(idx [B, H, W] or checksums [B], live_stale, reuse metadata or
     None) of one tick's full frame, cameras Morton-sorted when the batch
-    is larger than 8 (with the reused permutation under `reuse`),
-    outputs in caller order.  The whole batch renders at once: JAX's
+    is larger than 8 (with the reused permutation under `reuse`, and the
+    tick's trig bundle `trig` [6, B] gathered to match), outputs in
+    caller order.  The whole batch renders at once: JAX's
     render_chunk pieces change no per-camera list, frame or summed
     counter.  The rest of the render's aux is dropped here, so no tick's
     temporaries live on into the next tick's render."""
@@ -72,12 +77,14 @@ def _render(level, cfg, st: GameState, return_frames: bool, reuse=None,
         perm = reuse["perm"]
     elif cfg.camera_sort and st.batch > 8:
         perm = sort_perm(st.pos, st.angle)
+    trig = trig[:4]
     if perm is not None:
         st, _ = sort_state(st, perm)
+        trig = trig.index_select(1, perm)
     idx, _, aux = render_frame(
         level, cfg, st.pos[:, 0], st.pos[:, 1], st.angle, st.floor_height,
         st.sector_light, st.mobj_state, st.timestamp,
-        reuse=reuse, want_reuse=want_reuse)
+        reuse=reuse, want_reuse=want_reuse, trig=trig)
     out = idx if return_frames else idx.sum(dim=(1, 2))
     if perm is not None:
         (out,) = unsort_out((out,), perm)
@@ -89,9 +96,11 @@ def _render(level, cfg, st: GameState, return_frames: bool, reuse=None,
 
 def rollout(level: DeviceLevel, tkt: ThinkerTables, cfg, state: GameState,
             controls_seq, draws, return_frames: bool = True,
-            live_reuse: bool = False, turbo: float = 1.0):
+            live_reuse: bool = False, turbo: float = 1.0, trig=None):
     """T ticks of step and render: `controls_seq` [T, B] i32, `draws` a
-    callable t -> [2, B, SEC] i32 (tick t's light draws).
+    callable t -> [2, B, SEC] i32 (tick t's light draws), `trig` the
+    ticks' [T, 6, B] table (player.tick_trig), else made here with the
+    call's one host round trip.
 
     Returns (final state, out) with out [T, B, H, W] i32 palette-index
     frames (return_frames=True; mind the memory, T*B*H*W*4 bytes) or
@@ -104,13 +113,17 @@ def rollout(level: DeviceLevel, tkt: ThinkerTables, cfg, state: GameState,
     (render_frame), and returns a third element, the summed live_stale
     (i32): 0 proves every frame is the one live_reuse=False draws."""
     T = controls_seq.shape[0]
+    if trig is None:
+        trig = player_mod.tick_trig(state.angle, controls_seq, turbo)
     outs = []
     reuse = None
     stale = torch.zeros((), dtype=I32, device=state.device)
     for t in range(T):
-        state = tick(level, tkt, state, controls_seq[t], draws(t), turbo)
+        state = tick(level, tkt, state,
+                     player_mod.Controls(controls_seq[t], trig[t]), draws(t),
+                     turbo)
         out, tick_stale, meta = _render(level, cfg, state, return_frames,
-                                        reuse=reuse,
+                                        trig[t], reuse=reuse,
                                         want_reuse=live_reuse and t == 0)
         reuse = meta or reuse
         stale = stale + tick_stale        # 0 on a freshly ordered tick

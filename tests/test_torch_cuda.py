@@ -10,7 +10,8 @@ render_walls against the same calls on the CPU, on the paint path
 (`use_pallas_paint=True`), on the scan + resolve pipeline and on a
 256-row atlas, each pipeline's kernel launches, moving and reuse
 rollouts, calibration, the split over [cuda:0, cuda:0], the shell and
-the census of synchronizing calls.
+the census of synchronizing calls (one host round trip a tick, a render
+and a rollout).
 
 This file imports no JAX, so it also runs where there is a card and no
 JAX; the repo's conftest imports JAX, so leave it out there:
@@ -835,13 +836,15 @@ def test_cli_on_card_equals_engine(cuda, tmp_path):
 
 @pytest.mark.parametrize("pipeline", ["paint", "scan", "itempass"])
 def test_every_sync_is_in_a_sync_range(cuda, pipeline):
-    """torch.cuda's sync debug mode over a tick and a render of 64
-    walking cameras on e1m1-scale at 320x200, pools calibrated on the
-    state, on each pipeline: every synchronizing call lies inside a
-    doom.sync range, no range inside another, and the ranges number
-    what the CPU tests hold the port to (tests/test_torch_trace.py)."""
+    """torch.cuda's sync debug mode over a tick, a render and a 2-tick
+    rollout of moving controls of 64 cameras on e1m1-scale at 320x200,
+    pools calibrated on the state, on each pipeline: every synchronizing
+    call lies inside a doom.sync range, no range inside another, and
+    the ranges number what the CPU tests hold the port to
+    (tests/test_torch_trace.py: one a call).  The rollout's frames and
+    final state equal the CPU port's."""
     from doomtpu_torch.sim.player import KEY_LEFT, KEY_UP
-    from test_torch_trace import SYNCS_RENDER, SYNCS_TICK
+    from test_torch_trace import SYNCS_RENDER, SYNCS_ROLLOUT, SYNCS_TICK
 
     cfg = RenderConfig(width=320, height=200,
                        use_pallas_paint=pipeline != "scan",
@@ -855,11 +858,27 @@ def test_every_sync_is_in_a_sync_range(cuda, pipeline):
     st1 = eng.tick(st, ctl)
     eng = eng.calibrate([st1])
     eng.render(st1)
-    for call, syncs in ((lambda: eng.tick(st, ctl), SYNCS_TICK),
-                        (lambda: eng.render(st1), SYNCS_RENDER[pipeline])):
+    moves = moving_controls(2, 64)
+    draws = torch.randint(0, 1 << 30, (2, 2, 64, eng.level.num_sectors),
+                          generator=torch.Generator().manual_seed(5),
+                          dtype=torch.int32)
+    moves_c, draws_c = moves.to(cuda), draws.to(cuda)
+    for call, syncs in (
+            (lambda: eng.tick(st, ctl), SYNCS_TICK),
+            (lambda: eng.render(st1), SYNCS_RENDER[pipeline]),
+            (lambda: eng.rollout(st, moves_c, draws=draws_c), SYNCS_ROLLOUT)):
         c = sync_census(call)
         assert c["inside"] and all(c["inside"]), (c["inside"], c["sites"])
         assert (c["syncs"], c["nested"]) == (syncs, 0), c
+    final, frames = c["out"]
+    cpu = DoomEngine.from_wad_bytes(synth.e1m1_scale_wad(), "e1m1",
+                                    config=eng.config, device="cpu")
+    want_final, want = cpu.rollout(st.map(lambda x: x.cpu()), moves,
+                                   draws=draws)
+    assert (frames.cpu() != want).sum().item() == 0
+    for f in dataclasses.fields(final):
+        assert torch.equal(getattr(final, f.name).cpu(),
+                           getattr(want_final, f.name)), f.name
 
 
 def test_calibrate_on_card_equals_cpu(engines):

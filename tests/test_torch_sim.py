@@ -1,7 +1,8 @@
 """The port's simulation against the JAX package on the CPU: movement,
 the light and map-object thinkers, `tick`, `engine.rollout`, the reused
 traversal order's check, the paint stage's cross-tick live-list reuse
-and the state API.
+the state API, and the trig table a rollout reads once (the host's
+replay of the turns, held to the ticks bit for bit, port only).
 
 Fixtures: the demo and e1m1-scale (all eight light specials), B=8
 spread poses each, at 64x48, the port's `new_game` moved to JAX.  The
@@ -41,7 +42,9 @@ from doomtpu_torch.config import RenderConfig  # noqa: E402
 from doomtpu_torch.engine import DoomEngine  # noqa: E402
 from doomtpu_torch.ops import paint as tp  # noqa: E402
 from doomtpu_torch.render import camera as tcam  # noqa: E402
+from doomtpu_torch.render import jmath  # noqa: E402
 from doomtpu_torch.sim import player as tplayer  # noqa: E402
+from doomtpu_torch.sim import step as tstep  # noqa: E402
 from doomtpu_torch.sim import thinkers as ttk  # noqa: E402
 from doomtpu_torch.sim.state import GameState  # noqa: E402
 from doomtpu_torch.wad import synth  # noqa: E402
@@ -477,3 +480,87 @@ def test_state_api_equals_jax(demo, tmp_path):
         m = te.map_2d(ts, env)
         assert m.dtype == np.uint8 and m.shape == (48, 64, 3)
         np.testing.assert_array_equal(m, je.map_2d(js, env))
+
+
+# ---------------------------------------------------------------------------
+# (i) the trig table: one host round trip a rollout (port only, no JAX)
+# ---------------------------------------------------------------------------
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _all_masks(ticks, n, seed) -> np.ndarray:
+    """[ticks, n] i32: each of the 64 control masks equally often, in a
+    random order."""
+    rng = np.random.default_rng(seed)
+    return rng.permutation(np.resize(np.arange(64, dtype=np.int32),
+                                     ticks * n)).reshape(ticks, n)
+
+
+@pytest.mark.parametrize("turbo", [1.0, 2.0])
+def test_host_turns_and_trig_equal_the_ticks(demo, turbo):
+    """Over 32 ticks of every control mask at B=16: the host's replay of
+    the turns (player.turns) gives the angles `tick` computes, bit for
+    bit, and the rollout's table (player.tick_trig) holds cos_sin of the
+    tick's own a_t, -a_t and a_t + pi/2, bit for bit."""
+    _, te, _, _ = demo
+    eng = dataclasses.replace(te, turbo=turbo)
+    n, ticks = 16, 32
+    pos, ang = _spread(te.tables, n, seed=5)
+    st = eng.new_game(n, pos=pos, angle=ang,
+                      generator=torch.Generator().manual_seed(0))
+    controls = _all_masks(ticks, n, seed=7)
+    draws = eng.light_draws(n, torch.Generator().manual_seed(1), ticks=ticks)
+    table = tplayer.tick_trig(st.angle, torch.from_numpy(controls), turbo)
+    assert table.shape == (ticks, 6, n) and table.dtype == torch.float32
+    turned = tplayer.turns(st.angle.numpy(), controls, turbo)
+    for t in range(ticks):
+        st = eng.tick(st, controls[t], draws=draws[t])
+        np.testing.assert_array_equal(_bits(turned[t]),
+                                      _bits(st.angle.numpy()))
+        for row, x in ((jmath.COS, st.angle), (jmath.NCOS, -st.angle),
+                       (jmath.SCOS, st.angle + float(jmath.HALF_PI))):
+            c, s = jmath.cos_sin(x)
+            np.testing.assert_array_equal(_bits(table[t, row]), _bits(c))
+            np.testing.assert_array_equal(_bits(table[t, row + 1]), _bits(s))
+    assert (st.angle != torch.from_numpy(ang)).any()
+
+
+@pytest.mark.parametrize("cfg,live_reuse", [(DEMO, False), (PAINT, False),
+                                            (PAINT, True)],
+                         ids=["scan", "paint", "paint-reuse"])
+def test_rollout_table_equals_tick_by_tick(demo, cfg, live_reuse):
+    """A rollout's frames, final state (and live_stale) with its one
+    trig table equal a loop of `engine.tick` and a render that take
+    their trig from the device's own angles, call by call: 16 sorted
+    cameras, 4 ticks of every control mask.  With live_reuse the loop
+    renders as the rollout does (sim/step._render, the first tick's
+    order, permutation and kept set reused)."""
+    _, te, _, _ = demo
+    eng = dataclasses.replace(te, config=cfg)
+    n, ticks = 16, 4
+    pos, ang = _spread(te.tables, n, seed=6)
+    st0 = eng.new_game(n, pos=pos, angle=ang,
+                       generator=torch.Generator().manual_seed(0))
+    controls = _all_masks(ticks, n, seed=8)
+    draws = eng.light_draws(n, torch.Generator().manual_seed(2), ticks=ticks)
+    final, frames, *stale = eng.rollout(st0, controls, draws=draws,
+                                        live_reuse=live_reuse)
+    st, outs, reuse, want_stale = st0, [], None, 0
+    for t in range(ticks):
+        st = eng.tick(st, controls[t], draws=draws[t])
+        if live_reuse:
+            out, s, meta = tstep._render(
+                eng.level, cfg, st, True, jmath.camera_trig(st.angle),
+                reuse=reuse, want_reuse=t == 0)
+            reuse, want_stale = meta or reuse, want_stale + int(s)
+        else:
+            out = eng.render(st)[0]
+        outs.append(out)
+    assert torch.equal(frames, torch.stack(outs))
+    for f in dataclasses.fields(GameState):
+        assert torch.equal(getattr(final, f.name), getattr(st, f.name)), \
+            f.name
+    if live_reuse:
+        assert int(stale[0]) == want_stale

@@ -2,9 +2,9 @@
 
 Outside a profiler a span is the shared no-op; under torch.profiler a
 rollout and a render open the `doom.*` ranges at the layer boundaries,
-one `doom.sync` range a host round trip (as many a tick and a render
-call as the card's census of synchronizing calls found: SYNCS_TICK and
-SYNCS_RENDER, listed in PERF.md), `doom.sim.move` inside
+one `doom.sync` range a host round trip (one a call, at its start, as the
+card's census of synchronizing calls finds: SYNCS_TICK, SYNCS_RENDER and
+SYNCS_ROLLOUT, listed in PERF.md), `doom.sim.move` inside
 `doom.sim.tick`, a `doom.frames` range around each copy of a
 rollout's frames, and on the item pass a `doom.itempass` range around
 the item pack and one around K3 in the deferred pass's place.  The
@@ -36,17 +36,20 @@ from doomtpu_torch.wad import synth  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# host round trips of the CUDA path (the card's census, PERF.md §5): a
-# tick's movement, and a render call on each pipeline
-SYNCS_TICK = 2
-SYNCS_RENDER = {"paint": 7, "scan": 7, "itempass": 7}
+# host round trips of the CUDA path (the card's census, PERF.md §5), one
+# a call, at its start: a lone tick's movement reads its angles and
+# controls, a render on each pipeline its angles, a rollout its spawn
+# angles and every tick's controls
+SYNCS_TICK = 1
+SYNCS_RENDER = {"paint": 1, "scan": 1, "itempass": 1}
+SYNCS_ROLLOUT = 1
 # round trips a render's plain versions make on the CPU and the kernels
 # on the card do not: the paint kernel's plain version shades with
 # render/resolve.shade (its constants' upload, inside doom.walls); the
-# plain resolve reads the sizes of its two pair lists (`_winners`) and
-# shades (inside doom.resolve, where the kernel's path keeps its one
-# trig read); the item pass's plain version makes none
-PLAIN_SYNCS = {"paint": 1, "scan": 3, "itempass": 1}
+# plain resolve reads the sizes of its two pair lists (`_winners`),
+# takes its own trig (`jmath.rotate`) and shades (inside doom.resolve);
+# the item pass's plain version makes none
+PLAIN_SYNCS = {"paint": 1, "scan": 4, "itempass": 1}
 
 DEMO = RenderConfig(width=64, height=48, span_capacity=16, mid_capacity=4,
                     clip_capacity=16, item_capacity=4)
@@ -92,9 +95,10 @@ def _ranges(prof) -> dict:
 
 @pytest.fixture(scope="module", params=["scan", "paint", "itempass"])
 def runs(request):
-    """(pipeline, plain rollout, profiled rollout, profiled render): a
-    T-tick rollout with and without the profiler, and the ranges of the
-    profiled rollout and of one profiled render."""
+    """(pipeline, plain rollout, profiled rollout, ranges): a T-tick
+    rollout with and without the profiler, and the ranges of each
+    profiled call: {"rollout": the rollout, "render": one render,
+    "tick": one lone tick of MOVES[0]}."""
     eng = DoomEngine.from_wad_bytes(synth.demo_wad(), "e1m1",
                                     config=CONFIGS[request.param],
                                     device="cpu")
@@ -107,7 +111,11 @@ def runs(request):
         traced = eng.rollout(st, MOVES, draws=draws)
     with profile(activities=[ProfilerActivity.CPU]) as prof_render:
         eng.render(st)
-    return request.param, plain, traced, _ranges(prof), _ranges(prof_render)
+    with profile(activities=[ProfilerActivity.CPU]) as prof_tick:
+        eng.tick(st, MOVES[0], draws=draws[0])
+    return request.param, plain, traced, {
+        "rollout": _ranges(prof), "render": _ranges(prof_render),
+        "tick": _ranges(prof_tick)}
 
 
 def test_a_span_outside_a_profiler_is_the_shared_noop(monkeypatch):
@@ -158,49 +166,67 @@ def _outside(rng, spans):
             if not any(x <= a and b <= y for x, y in spans)]
 
 
-def test_one_sync_range_a_round_trip(runs):
-    """The round trips of the CUDA path, and those of the plain versions
-    the CPU runs in place of the kernels (PLAIN_SYNCS): inside
-    doom.walls, one a render on the paint pipelines and none on the
-    scan's; inside doom.resolve, the plain resolve's three and the trig
-    read of the kernel's path on the scan pipeline; inside
-    doom.itempass, the item pack's three: the sprite scalars' rotate and
-    viewport clip, and its own upload."""
-    pipeline, _, _, rollout, render = runs
-    for rng, calls, ticks in ((rollout, T, T), (render, 1, 0)):
-        syncs, walls = rng["doom.sync"], rng["doom.walls"]
-        plain = calls * PLAIN_SYNCS[pipeline]
-        assert len(syncs) - plain == (ticks * SYNCS_TICK + calls
-                                      * SYNCS_RENDER[pipeline])
+@pytest.mark.parametrize("call", ["tick", "render", "rollout"])
+def test_one_sync_range_a_round_trip(runs, call):
+    """The round trips of the CUDA path, one a call (a lone tick, a
+    render, a whole T-tick rollout), before the call's first stage, and
+    those of the plain versions the CPU runs in place of the kernels
+    (PLAIN_SYNCS): inside doom.walls, one a render on the paint
+    pipelines and none on the scan's; inside doom.resolve, the plain
+    resolve's four on the scan pipeline; none inside doom.itempass."""
+    pipeline, _, _, ranges = runs
+    rng = ranges[call]
+    ours = {"tick": SYNCS_TICK, "render": SYNCS_RENDER[pipeline],
+            "rollout": SYNCS_ROLLOUT}[call]
+    renders = {"tick": 0, "render": 1, "rollout": T}[call]
+    syncs = rng["doom.sync"]
+    plain = renders * PLAIN_SYNCS[pipeline]
+    assert len(syncs) - plain == ours
+    # the call's own round trip comes first: a tick's in its movement, a
+    # render's before its camera stage, a rollout's before its first tick
+    first = {"tick": "doom.sim.move", "render": "doom.camera",
+             "rollout": "doom.sim.tick"}[call]
+    if call == "tick":
+        (a, b), = rng[first]
+        assert a <= syncs[0][0] and syncs[0][1] <= b
+    else:
+        assert syncs[0][1] <= rng[first][0][0]
+    if renders:
+        walls = rng["doom.walls"]
         assert len(syncs) - len(_outside(syncs, walls)) == (
             0 if pipeline == "scan" else plain)
-        if pipeline == "scan":
-            resolve = rng["doom.resolve"]
-            assert len(syncs) - len(_outside(syncs, resolve)) == plain + calls
-        if pipeline == "itempass":
-            items = rng["doom.itempass"]
-            assert len(syncs) - len(_outside(syncs, items)) == 3 * calls
-        # no round trip inside another
-        assert all(b0 <= a1 for (_, b0), (a1, _) in zip(syncs, syncs[1:]))
+    if renders and pipeline == "scan":
+        resolve = rng["doom.resolve"]
+        assert len(syncs) - len(_outside(syncs, resolve)) == plain
+    if renders and pipeline == "itempass":
+        assert _outside(syncs, rng["doom.itempass"]) == syncs
+    # no round trip inside another
+    assert all(b0 <= a1 for (_, b0), (a1, _) in zip(syncs, syncs[1:]))
 
 
 def test_move_inside_tick(runs):
-    _, _, _, rollout, _ = runs
+    _, _, _, ranges = runs
+    rollout = ranges["rollout"]
     ticks, moves = rollout["doom.sim.tick"], rollout["doom.sim.move"]
     assert len(ticks) == len(moves) == T
     for (a, b), (c, d) in zip(ticks, moves):
         assert a <= c <= d <= b
-    # the tick's two round trips are the movement's
+    # a rollout's ticks take their trig from the call's table: no round
+    # trip in their movement; a lone tick's one is its movement's
     syncs = rollout["doom.sync"]
     for c, d in moves:
-        assert sum(c <= a and b <= d for a, b in syncs) == SYNCS_TICK
+        assert sum(c <= a and b <= d for a, b in syncs) == 0
+    lone = ranges["tick"]
+    (c, d), = lone["doom.sim.move"]
+    assert sum(c <= a and b <= d for a, b in lone["doom.sync"]) == SYNCS_TICK
 
 
 def test_frames_ranges_a_rollout(runs):
     """One doom.frames range for the ticks' stack (one segment of
     max_ticks_per_jit ticks) and one for engine.rollout's concatenation
     of the segments, after every tick; none in a render."""
-    pipeline, _, _, rollout, render = runs
+    pipeline, _, _, ranges = runs
+    rollout, render = ranges["rollout"], ranges["render"]
     frames = rollout["doom.frames"]
     assert len(frames) == 2
     last_tick = max(b for _, b in rollout["doom.sim.tick"])
@@ -215,7 +241,8 @@ def test_itempass_ranges_the_item_stage(runs):
     """On the item pass, two doom.itempass ranges a render, after the
     walls: the item pack, then K3's call; no deferred pass.  The other
     pipelines open none."""
-    pipeline, _, _, rollout, render = runs
+    pipeline, _, _, ranges = runs
+    rollout, render = ranges["rollout"], ranges["render"]
     if pipeline != "itempass":
         assert "doom.itempass" not in render
         assert "doom.itempass" not in rollout
@@ -228,7 +255,7 @@ def test_itempass_ranges_the_item_stage(runs):
 
 
 def test_profiler_changes_no_bit(runs):
-    _, (s0, f0), (s1, f1), _, _ = runs
+    _, (s0, f0), (s1, f1), _ = runs
     assert torch.equal(f0, f1)
     for f in dataclasses.fields(s0):
         assert torch.equal(getattr(s0, f.name), getattr(s1, f.name)), f.name

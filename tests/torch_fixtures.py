@@ -166,7 +166,8 @@ def sync_census(call) -> dict:
     warning (the stack's innermost four where no frame is the port's),
     "inside": whether a doom.sync range held each (a `census.sync` mark
     is put in a CPU profile at the warning), "syncs": the doom.sync
-    ranges opened, "nested": those inside another}."""
+    ranges opened, "nested": those inside another, "out": what `call()`
+    returned}."""
     import traceback
     import warnings
 
@@ -196,7 +197,7 @@ def sync_census(call) -> dict:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                call()
+                out = call()
             finally:
                 torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -208,4 +209,5 @@ def sync_census(call) -> dict:
     nested = sum(1 for i, (a, b) in enumerate(syncs)
                  if any(x <= a and b <= y for x, y in syncs[:i]))
     return {"sites": sites, "syncs": len(syncs), "nested": nested,
-            "inside": [any(a <= m <= b for a, b in syncs) for m in marks]}
+            "inside": [any(a <= m <= b for a, b in syncs) for m in marks],
+            "out": out}
